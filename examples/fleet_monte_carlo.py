@@ -13,7 +13,7 @@ ensemble — is a single pytree with a leading bank axis:
 * ensemble NEES/consistency statistics stream back each second.
 
 Run:
-    python examples/fleet_monte_carlo.py --bank 8192          # one TPU chip
+    python examples/fleet_monte_carlo.py --bank 8192          # one GPU
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
         python examples/fleet_monte_carlo.py --bank 256 --seconds 2 --cpu
 """
@@ -85,7 +85,6 @@ def main(argv=None):
         """One simulated second: rate× (predict + masked DVL @~5 Hz)."""
         def tick(carry, k):
             bs = carry
-            # fused Pallas predict + update on TPU f32 (generic path elsewhere)
             bs = pukf.predict_bank(bs, params, dt)
             bs2, _ = pukf.update_velocity_bank(bs, params, z_dvl, jnp.eye(3, dtype=dtype) * 1e-4)
             do_dvl = (k % dvl_every) == 0

@@ -71,36 +71,23 @@ def main(candidates=8, seconds=20.0, rate=25.0, seed=0):
     dvl = jnp.asarray(dvl, dtype)
     r_dvl = jnp.eye(3, dtype=dtype) * (2e-3) ** 2 * 4
 
-    # bank of identical initial states, one per candidate, replayed on the
-    # LANES-PERSISTENT production loop: the fully-banked predict kernel mode
-    # (per-lane decay/geography/Q operands, built once before the scan) keeps
-    # the parameter sweep on the same fast path as a shared-parameter fleet
-    # (models/pose_fused.banked_predict_operands; VERDICT r3 item 2)
-    from slam_uwv_kalman_filters_tpu.models import pose_fused as pf
-    from slam_uwv_kalman_filters_tpu.models import pose_update_fused as puf
+    # bank of identical initial states, one per candidate: predict_bank takes
+    # the banked parameter set directly, and the DVL model reads no
+    # parameters, so its bank update serves the sweep too
     from slam_uwv_kalman_filters_tpu.parallel import bank as bankmod
 
     s0 = pukf.integrate_rotation_rate(state, jnp.zeros(3, dtype))
     bstate = bankmod.replicate(s0, candidates)
-    ls0 = pf.to_lanes(bstate)
-    interp = jax.default_backend() != "tpu"  # exact kernels, Pallas interpreter
-    banked_ops = pf.banked_predict_operands(
-        params_bank, dt, dtype, ls0.cov_t.shape[-1]
-    )
 
-    def tick(ls, z):
-        ls = pf.predict_lanes(ls, params_bank, dt, banked_ops=banked_ops,
-                              interpret=interp)
-        # the DVL model reads no parameters, so the in-kernel measurement
-        # serves the parameter sweep too
+    def tick(bs, z):
+        bs = pukf.predict_bank(bs, params_bank, dt)
         zb = jnp.broadcast_to(z, (candidates, 3))
-        ls, info = puf.update_velocity_lanes(ls, params_bank, zb, r_dvl,
-                                             interpret=interp)
-        return ls, info.mahalanobis2
+        bs, info = pukf.update_velocity_bank(bs, params_bank, zb, r_dvl)
+        return bs, info.mahalanobis2
 
-    sweep = jax.jit(lambda ls: jax.lax.scan(tick, ls, dvl)[1].mean(axis=0))
+    sweep = jax.jit(lambda bs: jax.lax.scan(tick, bs, dvl)[1].mean(axis=0))
     t0 = time.perf_counter()
-    mean_nis = np.asarray(sweep(ls0))
+    mean_nis = np.asarray(sweep(bstate))
     wall = time.perf_counter() - t0
 
     # consistency target: E[NIS] = measurement dim = 3

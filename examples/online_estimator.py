@@ -1,7 +1,7 @@
-"""Online estimation loop — native event ingest + lanes-layout dispatch.
+"""Online estimation loop — native event ingest + per-tick bank dispatch.
 
 The deployment shape the reference's ROCK component implements by hand
-(SURVEY.md §3.6: a host callback per sensor sample), reassembled TPU-native:
+(SURVEY.md §3.6: a host callback per sensor sample):
 
 1. sensors deliver an **irregular, slightly out-of-order event stream**
    (timestamped gyro / DVL / pressure packets);
@@ -9,18 +9,12 @@ The deployment shape the reference's ROCK component implements by hand
    when no compiler) stages each arriving chunk incrementally and releases
    dense tick windows with validity masks in order — the host-side work that
    would otherwise serialize Python in the ingest path;
-3. the filter bank advances chunk by chunk with **separately-dispatched**
-   jitted calls, holding the state in kernel (lanes) layout between calls
-   (``models.pose_fused.LanesBankState``) so per-dispatch layout conversions
-   never happen.
+3. the filter bank advances tick by tick with **separately-dispatched**
+   jitted bank calls (``pukf.predict_bank`` / ``update_*_bank``), each
+   sensor update dispatched only on the ticks it arrived.
 
-Run:  python examples/online_estimator.py           # TPU (f32 fused kernels)
+Run:  python examples/online_estimator.py           # default device, f32
       python examples/online_estimator.py --cpu --bank 32 --rate 10
-      python examples/online_estimator.py --bank 128 --fused-step
-          # few-vehicle latency mode: predict + all of a tick's sensor
-          # updates in ONE kernel launch (pose_update_fused.step_lanes;
-          # measured end-to-end 7.6x vs 6.3x real time at 100 Hz x bank 128
-          # on a v5e — the 1.2x single-tile kernel win carried through)
 """
 
 from __future__ import annotations
@@ -71,11 +65,6 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--cpu", action="store_true", help="force the CPU backend")
     p.add_argument(
-        "--fused-step", action="store_true",
-        help="dispatch predict + the tick's sensor updates as ONE kernel "
-        "launch (step_lanes) — the small-bank latency mode",
-    )
-    p.add_argument(
         "--aot", action="store_true",
         help="pre-export the tick functions (utils.aot / jax.export) and "
         "dispatch the deserialized artifacts — the ship-to-vehicle path "
@@ -90,17 +79,11 @@ def main(argv=None):
     import jax.numpy as jnp
 
     from slam_uwv_kalman_filters_tpu import runtime
-    from slam_uwv_kalman_filters_tpu.models import (
-        pose_fused,
-        pose_ukf as pukf,
-        pose_update_fused as puf,
-    )
+    from slam_uwv_kalman_filters_tpu.models import pose_ukf as pukf
     from slam_uwv_kalman_filters_tpu.ops import dynamics as dyn
     from slam_uwv_kalman_filters_tpu.parallel import bank as bankmod
     from slam_uwv_kalman_filters_tpu.utils.config import default_pose_ukf_config
 
-    on_tpu = jax.default_backend() == "tpu"
-    interpret = not on_tpu  # lanes Pallas kernels need interpret mode off-TPU
     dtype = jnp.float32
     rng = np.random.default_rng(args.seed)
     dt = 1.0 / args.rate
@@ -121,68 +104,25 @@ def main(argv=None):
         config=cfg, model_parameters=model, imu_delta_t=dt, dtype=dtype,
     )
     state = pukf.integrate_rotation_rate(state, jnp.zeros(3, dtype))
-    ls = pose_fused.to_lanes(bankmod.replicate(state, args.bank))
+    bs = bankmod.replicate(state, args.bank)
     print(f"backend={jax.default_backend()} bank={args.bank} "
-          f"native_packer={runtime.native_available()} fused_step={args.fused_step}")
+          f"native_packer={runtime.native_available()}")
 
     r_dvl = jnp.eye(3, dtype=dtype) * 1e-4
     r_press = jnp.eye(1, dtype=dtype) * 2500.0
 
-    # separately-dispatched jits (the online shape): lanes layout persists
+    # separately-dispatched jits (the online shape)
     @jax.jit
-    def tick_predict(ls, rr):
-        ls = pose_fused.set_rotation_rate_lanes(ls, rr)
-        return pose_fused.predict_lanes(ls, params, dt, interpret=interpret)
+    def tick_predict(bs, rr):
+        return pukf.predict_bank(bs._replace(rotation_rate=rr), params, dt)
 
     @jax.jit
-    def tick_dvl(ls, z):
-        # measurement model fused in-kernel — one launch, no delta round-trip
-        out, _ = puf.update_model_lanes("velocity", ls, z, r_dvl, interpret=interpret)
-        return out
+    def tick_dvl(bs, z):
+        return pukf.update_velocity_bank(bs, params, z, r_dvl)[0]
 
     @jax.jit
-    def tick_press(ls, z):
-        out, _ = puf.update_model_lanes(
-            "pressure", ls, z, r_press,
-            aux=(params.atmospheric_pressure, 0.0, 0.0, 0.0),
-            interpret=interpret,
-        )
-        return out
-
-    # --fused-step: one launch per tick (predict + every sensor that arrived;
-    # one jitted variant per sensor combination, each compiled once)
-    press_aux = (params.atmospheric_pressure, 0.0, 0.0, 0.0)
-
-    @jax.jit
-    def tick_step_dvl(ls, rr, z):
-        ls = pose_fused.set_rotation_rate_lanes(ls, rr)
-        out, _ = puf.step_lanes(
-            ls, params, dt, [puf.StepUpdate("velocity", z, r_dvl)],
-            interpret=interpret,
-        )
-        return out
-
-    @jax.jit
-    def tick_step_press(ls, rr, z):
-        ls = pose_fused.set_rotation_rate_lanes(ls, rr)
-        out, _ = puf.step_lanes(
-            ls, params, dt, [puf.StepUpdate("pressure", z, r_press, aux=press_aux)],
-            interpret=interpret,
-        )
-        return out
-
-    @jax.jit
-    def tick_step_both(ls, rr, zv, zp):
-        ls = pose_fused.set_rotation_rate_lanes(ls, rr)
-        out, _ = puf.step_lanes(
-            ls, params, dt,
-            [
-                puf.StepUpdate("velocity", zv, r_dvl),
-                puf.StepUpdate("pressure", zp, r_press, aux=press_aux),
-            ],
-            interpret=interpret,
-        )
-        return out
+    def tick_press(bs, z):
+        return pukf.update_pressure_bank(bs, params, z, r_press)[0]
 
     if args.aot:
         # the ship-to-vehicle deployment path: every tick function crosses a
@@ -190,20 +130,10 @@ def main(argv=None):
         # loop below then runs deserialized steps with zero tracing
         from slam_uwv_kalman_filters_tpu.utils import aot
 
-        allow = jax.default_backend() == "tpu"
-        rt = lambda fn, *ex: aot.deserialize(
-            aot.serialize(aot.export_step(fn, *ex, allow_tpu_kernels=allow))
-        )
-        ex_rr = jnp.zeros((args.bank, 3), dtype)
-        ex_zv = jnp.zeros((args.bank, 3), dtype)
-        ex_zp = jnp.zeros((args.bank, 1), dtype)
-        if args.fused_step:
-            tick_step_dvl = rt(tick_step_dvl, ls, ex_rr, ex_zv)
-            tick_step_press = rt(tick_step_press, ls, ex_rr, ex_zp)
-            tick_step_both = rt(tick_step_both, ls, ex_rr, ex_zv, ex_zp)
-        tick_predict = rt(tick_predict, ls, ex_rr)
-        tick_dvl = rt(tick_dvl, ls, ex_zv)
-        tick_press = rt(tick_press, ls, ex_zp)
+        rt = lambda fn, *ex: aot.deserialize(aot.serialize(aot.export_step(fn, *ex)))
+        tick_predict = rt(tick_predict, bs, jnp.zeros((args.bank, 3), dtype))
+        tick_dvl = rt(tick_dvl, bs, jnp.zeros((args.bank, 3), dtype))
+        tick_press = rt(tick_press, bs, jnp.zeros((args.bank, 1), dtype))
 
     sensor_dims = np.asarray([3, 3, 1], np.int32)
     last_gyro = np.zeros(3)  # gyro is an input sensor: ticks without an event
@@ -230,42 +160,26 @@ def main(argv=None):
         dropped_total = packer.dropped
         gyro_vals, _ = runtime.forward_fill(values[GYRO], valid[GYRO], last_gyro)
         last_gyro = gyro_vals[-1, :3].copy()
-        # per-tick dispatch against the persistent lanes state
+        # per-tick dispatch against the persistent bank state
         for k in range(n_ticks):
-            rr = jnp.asarray(
-                np.tile(gyro_vals[k, :3], (args.bank, 1)), dtype
-            )
-            zv = zp = None
+            rr = jnp.asarray(np.tile(gyro_vals[k, :3], (args.bank, 1)), dtype)
+            bs = tick_predict(bs, rr)
             if valid[DVL, k]:
-                zv = jnp.asarray(np.tile(values[DVL, k, :3], (args.bank, 1)), dtype)
+                bs = tick_dvl(bs, jnp.asarray(np.tile(values[DVL, k, :3], (args.bank, 1)), dtype))
             if valid[PRESS, k]:
-                zp = jnp.asarray(np.tile(values[PRESS, k, :1], (args.bank, 1)), dtype)
-            if args.fused_step and zv is not None and zp is not None:
-                ls = tick_step_both(ls, rr, zv, zp)
-            elif args.fused_step and zv is not None:
-                ls = tick_step_dvl(ls, rr, zv)
-            elif args.fused_step and zp is not None:
-                ls = tick_step_press(ls, rr, zp)
-            else:
-                ls = tick_predict(ls, rr)
-                if zv is not None:
-                    ls = tick_dvl(ls, zv)
-                if zp is not None:
-                    ls = tick_press(ls, zp)
-        jax.block_until_ready(ls.cov_t)
+                bs = tick_press(bs, jnp.asarray(np.tile(values[PRESS, k, :1], (args.bank, 1)), dtype))
+        jax.block_until_ready(bs.cov)
         chunk_wall = time.perf_counter() - t_start
         wall += chunk_wall
         if sec > 0:  # exclude the compile chunk from the steady-state figure
             steady_wall += chunk_wall
             steady_chunks += 1
         if sec in (0, args.seconds - 1):
-            out = pose_fused.from_lanes(ls, bankmod.replicate(state, args.bank))
-            v = np.asarray(out.mu.velocity[0])
+            v = np.asarray(bs.mu.velocity[0])
             print(f"t={sec + 1:3d}s  chunk wall={chunk_wall * 1e3:6.0f} ms  "
                   f"v=({v[0]:+.3f},{v[1]:+.3f},{v[2]:+.3f})")
 
-    out = pose_fused.from_lanes(ls, bankmod.replicate(state, args.bank))
-    v = np.asarray(out.mu.velocity[0])
+    v = np.asarray(bs.mu.velocity[0])
     err = np.abs(v - true_v).max()
     rt = steady_chunks / steady_wall if steady_chunks else args.seconds / wall
     print(f"{total_events} events, {dropped_total} dropped; steady state "

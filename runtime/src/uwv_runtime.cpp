@@ -1,7 +1,7 @@
-// uwv_runtime — native host-side runtime for the TPU filter framework.
+// uwv_runtime — native host-side runtime for the banked filter framework.
 //
 // The reference library is driven by a ROCK component that feeds timestamped
-// sensor callbacks one at a time (SURVEY.md §3.6). The TPU execution model
+// sensor callbacks one at a time (SURVEY.md §3.6). The banked execution model
 // instead wants DENSE, fixed-shape schedules: one lax.scan over ticks with
 // per-sensor validity masks. This module is the data-loader between the two
 // worlds: it converts irregular multi-rate event streams into the packed

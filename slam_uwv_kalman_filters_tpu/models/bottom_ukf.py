@@ -1,4 +1,4 @@
-"""BottomUKF — seafloor distance/normal tracking filter, TPU-native.
+"""BottomUKF — seafloor distance/normal tracking filter.
 
 Re-implements the reference ``BottomUKF`` (``/root/reference/src/BottomUKF.hpp``,
 ``src/BottomUKF.cpp``): a 3-DOF UKF estimating the positive distance to the
@@ -142,55 +142,22 @@ def set_velocity(state: BottomUKFState, velocity: jax.Array) -> BottomUKFState:
 
 
 # ---------------------------------------------------------------------------
-# Bank-level entry points with auto-dispatch to the fused Pallas kernel
-# (models/bottom_fused.py) on the TPU f32 path — mirrors the pose/velocity
-# bank APIs. ``set_velocity`` already works bankwide (pure _replace).
+# Bank-level entry points — mirror the pose/velocity bank APIs.
+# ``set_velocity`` already works bankwide (pure _replace).
 # ---------------------------------------------------------------------------
 
 
-def _fused_ok(bstate: BottomUKFState) -> bool:
-    return (
-        bstate.cov.dtype == jnp.float32
-        and bstate.cov.ndim == 3
-        and jax.default_backend() == "tpu"
-    )
-
-
-def predict_bank(
-    bstate: BottomUKFState, params: BottomUKFParams, dt, *, use_fused: str | bool = "auto"
-) -> BottomUKFState:
-    """Bank-level prediction; ONE Pallas launch on the TPU f32 path (incl.
-    the in-kernel S² Karcher mean), ``vmap(predict)`` otherwise. A banked
-    ``process_noise`` (leading bank axis — Monte-Carlo sweeps) routes to the
-    per-instance vmap on any backend. ``use_fused="interpret"`` forces the
-    fused route in Pallas interpret mode (off-TPU dispatch testing)."""
-    banked = params.process_noise.ndim == 3
-    interpret = use_fused == "interpret"
-    if use_fused == "auto":
-        use_fused = _fused_ok(bstate) and not banked
-    if use_fused:
-        from . import bottom_fused
-
-        return bottom_fused.predict_fused_banked(bstate, params, dt, interpret=interpret)
-    if banked:
+def predict_bank(bstate: BottomUKFState, params: BottomUKFParams, dt) -> BottomUKFState:
+    """Bank-level prediction, ``vmap(predict)``. A banked ``process_noise``
+    (leading bank axis — Monte-Carlo sweeps) is vmapped alongside."""
+    if params.process_noise.ndim == 3:
         return jax.vmap(lambda s, p: predict(s, p, dt))(bstate, params)
     return jax.vmap(lambda s: predict(s, params, dt))(bstate)
 
 
-def update_range_bank(
-    bstate, z, meas_cov, unit_direction, origin, *, use_fused: str | bool = "auto"
-):
+def update_range_bank(bstate, z, meas_cov, unit_direction, origin):
     """Bank-level per-beam DVL range update; ``unit_direction``/``origin``
     may be shared ``(3,)`` or per-instance ``(B, 3)``."""
-    interpret = use_fused == "interpret"
-    if use_fused == "auto":
-        use_fused = _fused_ok(bstate)
-    if use_fused:
-        from . import bottom_fused
-
-        return bottom_fused.update_model_fused_banked(
-            "range", bstate, z, meas_cov, unit_direction, origin, interpret=interpret
-        )
     nb = bstate.cov.shape[0]
     dtype = bstate.cov.dtype
     d = jnp.broadcast_to(jnp.asarray(unit_direction, dtype), (nb, 3))
@@ -199,17 +166,8 @@ def update_range_bank(
     return jax.vmap(update_range)(bstate, jnp.asarray(z, dtype).reshape(nb, 1), rr, d, o)
 
 
-def update_normal_bank(bstate, z, meas_cov, *, use_fused: str | bool = "auto"):
+def update_normal_bank(bstate, z, meas_cov):
     """Bank-level S²-valued normal observation."""
-    interpret = use_fused == "interpret"
-    if use_fused == "auto":
-        use_fused = _fused_ok(bstate)
-    if use_fused:
-        from . import bottom_fused
-
-        return bottom_fused.update_model_fused_banked(
-            "normal", bstate, z, meas_cov, interpret=interpret
-        )
     dtype = bstate.cov.dtype
     rr = jnp.broadcast_to(jnp.asarray(meas_cov, dtype), (bstate.cov.shape[0], 2, 2))
     return jax.vmap(update_normal)(bstate, jnp.asarray(z, dtype), rr)

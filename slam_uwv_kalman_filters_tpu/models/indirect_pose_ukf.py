@@ -1,4 +1,4 @@
-"""IndirectPoseUKF — error-state pose corrector, TPU-native.
+"""IndirectPoseUKF — error-state pose corrector.
 
 Re-implements the reference ``IndirectPoseUKF``
 (``/root/reference/src/IndirectPoseUKF.hpp``, ``src/IndirectPoseUKF.cpp``):
@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 
 from ..ops import manifolds as mf
+from ..ops.linalg_small import mm
 from ..ops import ukf
 from ..utils.config import CameraConfiguration
 from ..utils.validation import check_measurement
@@ -141,7 +142,7 @@ def predict(state: IndirectPoseUKFState, params: IndirectPoseUKFParams, dt) -> I
     orientation error through its log (position error is a random walk)."""
     rot = mf.quat_to_matrix(state.mu.orientation_error)
     q = params.process_noise
-    q_orient = rot @ ((2.0 / (params.orientation_error_tau * dt)) * q[3:, 3:]) @ rot.T
+    q_orient = mm(rot, (2.0 / (params.orientation_error_tau * dt)) * q[3:, 3:], rot.T)
     q = q.at[3:, 3:].set(q_orient)
     q = dt**2 * q
 
@@ -264,40 +265,20 @@ def update_markers(
 
 
 # ---------------------------------------------------------------------------
-# Bank-level entry points with auto-dispatch to the fused Pallas kernel
-# (models/indirect_fused.py) on the TPU f32 path. ``update_pose_reference``
-# already works bankwide (pure _replace).
+# Bank-level entry points. ``update_pose_reference`` already works bankwide
+# (pure _replace).
 # ---------------------------------------------------------------------------
-
-
-def _fused_ok(bstate: IndirectPoseUKFState) -> bool:
-    return (
-        bstate.cov.dtype == jnp.float32
-        and bstate.cov.ndim == 3
-        and jax.default_backend() == "tpu"
-    )
 
 
 def predict_bank(
     bstate: IndirectPoseUKFState,
     params: IndirectPoseUKFParams,
     dt,
-    *,
-    use_fused: str | bool = "auto",
 ) -> IndirectPoseUKFState:
-    """Bank-level prediction; ONE Pallas launch on the TPU f32 path (incl.
-    the per-instance error-rotated Q and the SO(3) Karcher mean). Banked
-    parameters (leading bank axis on ``process_noise`` or a per-instance
-    ``orientation_error_tau`` — Monte-Carlo sweeps) route to the
-    per-instance vmap on any backend."""
+    """Bank-level prediction, ``vmap(predict)``. Banked parameters (leading
+    bank axis on ``process_noise`` or a per-instance
+    ``orientation_error_tau`` — Monte-Carlo sweeps) are vmapped alongside."""
     banked = params.process_noise.ndim == 3 or params.orientation_error_tau.ndim == 1
-    interpret = use_fused == "interpret"
-    if use_fused == "auto":
-        use_fused = _fused_ok(bstate) and not banked
-    if use_fused:
-        from . import indirect_fused
-
-        return indirect_fused.predict_fused_banked(bstate, params, dt, interpret=interpret)
     if banked:
         nb = bstate.cov.shape[0]
         pb = IndirectPoseUKFParams(
@@ -321,26 +302,10 @@ def update_markers_bank(
     camera: CameraConfiguration,
     camera_in_body_position,
     camera_in_body_orientation,
-    *,
-    use_fused: str | bool = "auto",
 ):
     """Bank-level visual-marker update. ``marker_features``/``feature_covs``
-    may be shared ``(K, ...)`` or per-instance ``(B, K, ...)``; on the TPU
-    f32 path the 12-DOF augmentation + K chained S² corner updates +
-    marginalization run as ONE kernel launch with the augmented state
-    resident only in VMEM."""
-    interpret = use_fused == "interpret"
-    if use_fused == "auto":
-        use_fused = _fused_ok(bstate)
-    if use_fused:
-        from . import indirect_fused
-
-        return indirect_fused.update_markers_fused_banked(
-            bstate, marker_features, feature_covs, feature_positions,
-            marker_position, marker_orientation, cov_marker_pose, camera,
-            camera_in_body_position, camera_in_body_orientation,
-            interpret=interpret,
-        )
+    may be shared ``(K, ...)`` or per-instance ``(B, K, ...)``, and so may the
+    marker-pose prior mean (``(3,)``/``(4,)`` or ``(B, ·)``)."""
     nb = bstate.cov.shape[0]
     dtype = bstate.cov.dtype
     feats = jnp.asarray(marker_features, dtype)
@@ -348,9 +313,6 @@ def update_markers_bank(
         feats = jnp.broadcast_to(feats[None], (nb, *feats.shape))
     k = feats.shape[1]
     fcovs = jnp.broadcast_to(jnp.asarray(feature_covs, dtype), (nb, k, 2, 2))
-    # marker pose may be shared (3,)/(4,) or per-instance (B,·) — broadcast
-    # and vmap over it so both backends accept the same shapes as the fused
-    # path (indirect_fused.update_markers_lanes)
     mpos = jnp.broadcast_to(jnp.asarray(marker_position, dtype), (nb, 3))
     mrot = jnp.broadcast_to(jnp.asarray(marker_orientation, dtype), (nb, 4))
 

@@ -3,24 +3,24 @@
 The north star (BASELINE.json) asks for 100k-class banks *within the ATE
 bound*, which requires measuring the ATE **distribution** over a real
 Monte-Carlo bank, not one replayed instance (VERDICT r3 "Missing #1"). This
-module runs an ICRA'18-style mission as a bank through the lanes-persistent
-production loop (:func:`models.pose_driver.pose_step_bank_lanes`) with
+module runs an ICRA'18-style mission as a bank through the bank tick
+(:func:`models.pose_driver.pose_step_bank`) with
 
 - **per-instance initial-state perturbations** drawn from the filter's own
   initial covariance (each instance starts with a plausibly-wrong estimate
   of the same true trajectory — the textbook Monte-Carlo consistency setup),
 - **per-instance, per-tick sensor noise** generated ON DEVICE inside the
   scan (``jax.random.fold_in`` per tick), so a (T, B, ...) measurement
-  tensor never exists in HBM — the schedule streams (T, ...) clean truth
+  tensor never exists in device memory — the schedule streams (T, ...) clean truth
   signals and each instance sees its own noise realization,
-- optional **banked Monte-Carlo parameters** (the fully-banked lanes predict
-  mode, ``pose_fused.banked_predict_operands``), and
+- optional **banked Monte-Carlo parameters** (leading bank axis on every
+  parameter leaf), and
 - **streaming error accumulation**: the carry integrates per-instance
   squared position error and χ²-gate outcomes, so the scan emits (B,)
   statistics instead of a (T, B, 3) trajectory.
 
 The reference has no analogue (it runs one filter on one log); this is the
-TPU-native capability layer on top of the reference's semantics
+fleet capability layer on top of the reference's semantics
 (``/root/reference/README.md:73-84`` — the ICRA'18 accuracy claim this
 distribution quantifies).
 """
@@ -33,7 +33,6 @@ import jax
 import jax.numpy as jnp
 
 from . import pose_driver as drv
-from . import pose_fused as pf
 from . import pose_ukf as pukf
 
 __all__ = [
@@ -116,32 +115,15 @@ def run_fleet_mission(
     spec: FleetMissionSpec,
     key: jax.Array,
     consts: Optional[drv.PoseStepConstants] = None,
-    *,
-    interpret: bool = False,
-    path: str = "lanes",
 ) -> FleetMissionResult:
-    """Replay the mission over the bank on the lanes-persistent loop and
-    return per-instance accuracy/consistency statistics. ``params`` may be a
-    shared set or a fully-banked Monte-Carlo sweep (leading bank axis on
-    every leaf — routes through the fully-banked predict kernel mode). One
-    ``lax.scan``; the carry holds only the lanes state + (B,) accumulators.
-
-    ``path`` selects the tick implementation: ``"lanes"`` (production
-    kernel-layout loop; Mosaic on TPU, the Pallas interpreter with
-    ``interpret=True``) or ``"bank"`` (the generic vmapped bank step —
-    kernel-free, so CI-sized CPU runs compile in seconds; parity between the
-    two is pinned by ``tests/test_full_mission.py``)."""
+    """Replay the mission over the bank and return per-instance
+    accuracy/consistency statistics. ``params`` may be a shared set or a
+    fully-banked Monte-Carlo sweep (leading bank axis on every leaf). One
+    ``lax.scan`` of :func:`models.pose_driver.pose_step_bank`; the carry
+    holds only the bank state + (B,) accumulators."""
     nb = bstate.cov.shape[0]
     dtype = bstate.cov.dtype
     n_ticks = spec.gyro.shape[0]
-
-    use_lanes = path == "lanes"
-    ls0 = pf.to_lanes(bstate) if use_lanes else bstate
-    banked_ops = None
-    if use_lanes and params.process_noise.ndim == 3:
-        banked_ops = pf.banked_predict_operands(
-            params, spec.dt, dtype, ls0.cov_t.shape[-1]
-        )
 
     has_gps = spec.gps is not None
     bc = lambda a: jnp.broadcast_to(a, (nb, *jnp.shape(a)))
@@ -181,8 +163,7 @@ def run_fleet_mission(
             pressure_cov=bc(spec.pressure_cov.astype(dtype)),
             pressure_valid=bc(x["pressure_valid"]),
             # the schedule carries no XY/ADCP/efforts sensors at all — None
-            # keeps their update phases out of the trace entirely (3 fewer
-            # launches per tick than an all-invalid masked schedule)
+            # keeps their update phases out of the trace entirely
             xy=None,
             xy_cov=None,
             xy_valid=None,
@@ -203,18 +184,7 @@ def run_fleet_mission(
             gps_cov=None if not has_gps else bc(spec.gps_cov.astype(dtype)),
             gps_valid=None if not has_gps else bc(x["gps_valid"]),
         )
-        if use_lanes:
-            ls, out = drv.pose_step_bank_lanes(
-                ls, params, inp, consts, nb=nb, interpret=interpret,
-                banked_ops=banked_ops,
-            )
-        else:
-            # "auto" routes to the fused bank kernels on TPU f32 and the
-            # generic vmap path elsewhere (CPU CI runs stay kernel-free)
-            ls, out = drv.pose_step_bank(
-                ls, params, inp, consts,
-                use_fused="interpret" if interpret else "auto",
-            )
+        ls, out = drv.pose_step_bank(ls, params, inp, consts)
         err = err + jnp.sum((out.position - x["truth"][None, :]) ** 2, axis=-1)
         if has_gps:
             g_acc = g_acc + jnp.where(
@@ -224,7 +194,7 @@ def run_fleet_mission(
         return (ls, err, g_acc, nis_sum), None
 
     (ls_f, err, g_acc, nis_sum), _ = jax.lax.scan(
-        tick, (ls0, zeros_b, zeros_b, zeros_b), xs
+        tick, (bstate, zeros_b, zeros_b, zeros_b), xs
     )
     n_gps = jnp.sum(spec.gps_valid.astype(dtype)) if has_gps else jnp.asarray(0.0, dtype)
     n_dvl = jnp.maximum(jnp.sum(spec.dvl_valid.astype(dtype)), 1.0)
@@ -232,5 +202,5 @@ def run_fleet_mission(
         ate=jnp.sqrt(err / n_ticks),
         gps_accept_frac=jnp.where(n_gps > 0, g_acc / jnp.maximum(n_gps, 1.0), 0.0),
         dvl_nis_mean=nis_sum / n_dvl,
-        final_state=pf.from_lanes(ls_f, bstate) if use_lanes else ls_f,
+        final_state=ls_f,
     )

@@ -11,12 +11,10 @@ entire replay and the same code path vmaps over trajectory banks.
 
 from __future__ import annotations
 
-from functools import partial
 from typing import NamedTuple, Optional
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from ..parallel.bank import select_where
 from . import pose_ukf as pukf
@@ -30,10 +28,6 @@ __all__ = [
     "run_trajectory",
     "pose_step_bank",
     "run_trajectory_bank",
-    "pose_step_bank_lanes",
-    "run_trajectory_bank_lanes",
-    "gps_update_lanes",
-    "delayed_xy_update_lanes",
     "TickOutput",
 ]
 
@@ -284,9 +278,20 @@ def _masked_update(state, valid, update_fn, *args):
     sensors stay observable (``info`` fields are only meaningful under
     ``valid`` — mask them at use sites). Rank-agnostic via
     ``bank.select_where``: serves both the solo path (scalar mask) and the
-    bank path ((B,) mask)."""
-    new_state, info = update_fn(*args)
-    return select_where(valid, new_state, state), info
+    bank path ((B,) mask). When no instance has the measurement the update
+    is skipped outright (``lax.cond``; zero ``info``), so a multi-rate
+    schedule pays each update only on the ticks it fires — under ``vmap``
+    the cond becomes a select and both branches run, as before."""
+
+    def run():
+        new_state, info = update_fn(*args)
+        return select_where(valid, new_state, state), info
+
+    def skip():
+        info = jax.eval_shape(update_fn, *args)[1]
+        return state, jax.tree_util.tree_map(lambda a: jnp.zeros(a.shape, a.dtype), info)
+
+    return jax.lax.cond(jnp.any(valid), run, skip)
 
 
 def pose_step(
@@ -445,28 +450,20 @@ def pose_step_bank(
     params: pukf.PoseUKFParams,
     inp: PoseInputs,
     consts: Optional[PoseStepConstants] = None,
-    *,
-    use_fused: str | bool = "auto",
 ) -> tuple[pukf.PoseUKFState, TickOutput]:
-    """Bank-level tick: same integration order as :func:`pose_step`, but each
-    phase is one fused Pallas launch over the whole bank on the TPU f32 path
+    """Bank-level tick: same integration order as :func:`pose_step`, with
+    each phase one bank-level call over the whole bank
     (``pukf.predict_bank`` / ``pukf.update_*_bank``). ``inp`` carries a
-    leading bank axis on every leaf (per-vehicle sensor streams).
-
-    ``use_fused`` forwards to every fused-capable bank entry ("auto" = fused
-    kernels on TPU f32; "interpret" runs the exact production kernels through
-    the Pallas interpreter — how CI asserts kernel-path missions off-TPU; the
-    event-rate streams GPS/delayed/markers are vmapped generic either way)."""
+    leading bank axis on every leaf (per-vehicle sensor streams)."""
     banked = params.process_noise.ndim == 3  # per-instance (Monte-Carlo) params
-    fu = dict(use_fused=use_fused)
     bstate = bstate._replace(rotation_rate=inp.rotation_rate)
-    bstate = pukf.predict_bank(bstate, params, inp.dt[0], **fu)
+    bstate = pukf.predict_bank(bstate, params, inp.dt[0])
 
     if inp.acc is not None:
         bstate, _ = _masked_update(
             bstate,
             inp.acc_valid,
-            partial(pukf.update_acceleration_bank, **fu),
+            pukf.update_acceleration_bank,
             bstate,
             params,
             inp.acc,
@@ -477,20 +474,19 @@ def pose_step_bank(
         bstate, dvl_info = _masked_update(
             bstate,
             inp.dvl_valid,
-            partial(pukf.update_velocity_bank, **fu),
+            pukf.update_velocity_bank,
             bstate,
             params,
             inp.dvl,
             inp.dvl_cov,
         )
     # the pressure model reads params.atmospheric_pressure; the bank entry
-    # handles banked values itself (fused banked-aux lanes on TPU, a
-    # per-instance vmap elsewhere), so sweeps stay on the fused route
+    # handles banked values itself (a per-instance vmap)
     if inp.pressure is not None:
         bstate, _ = _masked_update(
             bstate,
             inp.pressure_valid,
-            partial(pukf.update_pressure_bank, **fu),
+            pukf.update_pressure_bank,
             bstate,
             params,
             inp.pressure,
@@ -500,7 +496,7 @@ def pose_step_bank(
         bstate, _ = _masked_update(
             bstate,
             inp.xy_valid,
-            partial(pukf.update_xy_position_bank, **fu),
+            pukf.update_xy_position_bank,
             bstate,
             params,
             inp.xy,
@@ -511,7 +507,7 @@ def pose_step_bank(
         bstate, adcp_info = _masked_update(
             bstate,
             inp.adcp_valid,
-            partial(pukf.update_water_velocity_bank, **fu),
+            pukf.update_water_velocity_bank,
             bstate,
             params,
             inp.adcp,
@@ -519,30 +515,28 @@ def pose_step_bank(
             inp.adcp_cell_weighting,
         )
     # body efforts need each instance's compensated body rate: shared params
-    # ride the banked entry (fused tail on TPU — the per-instance rates go
-    # through the measurement stage's aux lanes); a banked (Monte-Carlo
+    # ride the banked entry with per-instance rates; a banked (Monte-Carlo
     # sweep) parameter set must be vmapped alongside the state instead of
     # closed over as (B,...)-constants
     if inp.efforts is not None:
-        if banked:
 
-            def _efforts_one(s, p, z, r):
-                s2, _ = pukf.update_body_efforts(s, p, z, r)
-                return s2
-
-            eff_state = jax.vmap(_efforts_one)(bstate, params, inp.efforts, inp.efforts_cov)
-        else:
-            rr_bank = pukf.get_rotation_rate_bank(bstate, params)
-            eff_state, _ = pukf.update_body_efforts_bank(
-                bstate, params, inp.efforts, inp.efforts_cov, rr_bank, **fu
+        def _efforts(bs):
+            if banked:
+                return jax.vmap(pukf.update_body_efforts)(
+                    bs, params, inp.efforts, inp.efforts_cov
+                )
+            rr_bank = pukf.get_rotation_rate_bank(bs, params)
+            return pukf.update_body_efforts_bank(
+                bs, params, inp.efforts, inp.efforts_cov, rr_bank
             )
-        bstate = select_where(inp.efforts_valid, eff_state, bstate)
+
+        bstate, _ = _masked_update(bstate, inp.efforts_valid, _efforts, bstate)
 
     if inp.z is not None:
         bstate, _ = _masked_update(
             bstate,
             inp.z_valid,
-            partial(pukf.update_z_position_bank, **fu),
+            pukf.update_z_position_bank,
             bstate,
             params,
             inp.z,
@@ -627,285 +621,13 @@ def run_trajectory_bank(
     params: pukf.PoseUKFParams,
     inputs: PoseInputs,
     consts: Optional[PoseStepConstants] = None,
-    *,
-    use_fused: str | bool = "auto",
 ) -> tuple[pukf.PoseUKFState, TickOutput]:
     """Fleet-scale replay: ``lax.scan`` over ticks of :func:`pose_step_bank`
-    — inputs have shape (T, bank, ...); one compilation, fused kernels every
-    tick. Note: unlike ``vmap(run_trajectory)``, the prediction interval is
+    — inputs have shape (T, bank, ...); one compilation. Note: unlike ``vmap(run_trajectory)``, the prediction interval is
     shared across the bank at each tick (the per-vehicle sensor values,
     validity, covariances and ADCP cell weightings still vary)."""
     return jax.lax.scan(
-        lambda s, i: pose_step_bank(s, params, i, consts, use_fused=use_fused),
+        lambda s, i: pose_step_bank(s, params, i, consts),
         bstate,
         inputs,
     )
-
-
-# ---------------------------------------------------------------------------
-# lanes-persistent fleet replay: the whole scan in kernel layout
-# ---------------------------------------------------------------------------
-
-
-def _lanes_select(valid, new_ls, old_ls, pad):
-    """Masked accept on kernel-layout state: (B,) validity broadcast along
-    the trailing lane axis (padding lanes keep their old filler values)."""
-    m = jnp.pad(valid, (0, pad))
-    return old_ls._replace(
-        cov_t=jnp.where(m, new_ls.cov_t, old_ls.cov_t),
-        mu_t=jnp.where(m, new_ls.mu_t, old_ls.mu_t),
-    )
-
-
-def gps_update_lanes(
-    ls, params, lat, lon, gps_cov, gps_in_body=None, *, nb, interpret=False
-):
-    """GPS surface fix on kernel-layout state — ``PoseUKF.cpp:567-579``
-    semantics (as ``update_geographic_position_bank``): project each
-    instance's (lat, lon) fix, correct the antenna lever arm with that
-    instance's OWN mean orientation read from the lanes-resident mean, then
-    the χ²-95-gated XY update in-kernel. Returns ``(LanesBankState, info)``
-    (apply through the caller's validity mask)."""
-    from ..ops import geodesy as geo, manifolds as mf, ukf as ukfops
-    from . import pose_update_fused as puf
-
-    dtype = ls.cov_t.dtype
-    lat = jnp.broadcast_to(jnp.asarray(lat, dtype), (nb,))
-    lon = jnp.broadcast_to(jnp.asarray(lon, dtype), (nb,))
-    x, y = geo.world_to_nav(params.projection, lat, lon)
-    projected = jnp.stack(
-        [jnp.broadcast_to(x, (nb,)), jnp.broadcast_to(y, (nb,))], axis=-1
-    ).astype(dtype)
-    if gps_in_body is not None:
-        g = jnp.asarray(gps_in_body, dtype)
-        quat = ls.mu_t[3:7, :nb].T
-        lever = jax.vmap(mf.quat_rotate, in_axes=(0, 0 if g.ndim == 2 else None))(
-            quat, g
-        )
-        projected = projected - lever[:, :2]
-    return puf.update_model_lanes(
-        "xy_position", ls, projected, gps_cov, ukfops.D2P95, interpret=interpret
-    )
-
-
-def delayed_xy_update_lanes(
-    ls, delayed_xy, delayed_cov, delayed_position, *, nb, interpret=False
-):
-    """Active delayed-position fix on kernel-layout state —
-    ``PoseUKF.cpp:514-527``: shift by each instance's (current − delayed)
-    position, then the standard in-kernel XY update."""
-    from . import pose_update_fused as puf
-
-    dtype = ls.cov_t.dtype
-    pos_xy = ls.mu_t[0:2, :nb].T
-    shifted = jnp.asarray(delayed_xy, dtype) + (
-        pos_xy - jnp.asarray(delayed_position, dtype)
-    )
-    return puf.update_model_lanes(
-        "xy_position", ls, shifted, delayed_cov, interpret=interpret
-    )
-
-
-def pose_step_bank_lanes(
-    lstate,
-    params: pukf.PoseUKFParams,
-    inp: PoseInputs,
-    consts: Optional[PoseStepConstants] = None,
-    *,
-    nb: int,
-    interpret: bool = False,
-    banked_ops=None,
-):
-    """Bank tick on kernel-layout state (``pose_fused.LanesBankState``): the
-    integration order of :func:`pose_step_bank`, but the covariance never
-    leaves the (col, row, B) lanes layout between launches and every
-    scheduled measurement model runs in-kernel — the production steady-state
-    loop as a scannable step (measured ≈1.6× :func:`pose_step_bank` on the
-    full mission tick, docs/TUNING.md "Roofline"). Banked (Monte-Carlo
-    sweep) parameter sets are supported: pass the pre-built
-    ``pose_fused.banked_predict_operands`` via ``banked_ops`` (the fully-
-    banked predict kernel mode); the pressure model routes its per-instance
-    ``atmospheric_pressure`` through the kernel's banked-aux lanes, while
-    banked dynamic-model parameters send the efforts update through the
-    generic fused-tail pipeline (per-instance model in the measurement
-    stage's aux pytree — see ``update_body_efforts_lanes``). Sensor groups
-    the mission lacks entirely should be ``None`` in ``inp`` so their
-    update phases are never traced. Marker ticks run the fused 59-DOF
-    augmentation kernel (``models/pose_marker_fused.py``)."""
-    from ..ops import ukf as ukfops
-    from . import pose_fused as pf
-    from . import pose_update_fused as puf
-
-    dtype = lstate.cov_t.dtype
-    pad = lstate.cov_t.shape[-1] - nb
-    it = dict(interpret=interpret)
-
-    ls = pf.set_rotation_rate_lanes(lstate, inp.rotation_rate)
-    ls = pf.predict_lanes(ls, params, inp.dt[0], banked_ops=banked_ops, **it)
-
-    if inp.acc is not None:
-        new, _ = puf.update_model_lanes("acceleration", ls, inp.acc, inp.acc_cov, **it)
-        ls = _lanes_select(inp.acc_valid, new, ls, pad)
-    dvl_info = None
-    if inp.dvl is not None:
-        new, dvl_info = puf.update_velocity_lanes(ls, params, inp.dvl, inp.dvl_cov, **it)
-        ls = _lanes_select(inp.dvl_valid, new, ls, pad)
-    if inp.pressure is not None:
-        if jnp.ndim(params.atmospheric_pressure) >= 1:
-            # banked p_atm (Monte-Carlo sweep) rides the per-instance aux lanes
-            new, _ = puf.update_model_lanes(
-                "pressure", ls, inp.pressure, inp.pressure_cov,
-                aux_bank=jnp.asarray(params.atmospheric_pressure, dtype)[:, None], **it,
-            )
-        else:
-            new, _ = puf.update_model_lanes(
-                "pressure", ls, inp.pressure, inp.pressure_cov,
-                aux=(params.atmospheric_pressure, 0.0, 0.0, 0.0), **it,
-            )
-        ls = _lanes_select(inp.pressure_valid, new, ls, pad)
-    if inp.xy is not None:
-        new, _ = puf.update_model_lanes("xy_position", ls, inp.xy, inp.xy_cov, **it)
-        ls = _lanes_select(inp.xy_valid, new, ls, pad)
-    adcp_info = None
-    if inp.adcp is not None:
-        new, adcp_info = puf.update_model_lanes(
-            "water_velocity", ls, inp.adcp, inp.adcp_cov, ukfops.D2P95,
-            aux_bank=inp.adcp_cell_weighting[:, None], **it,
-        )
-        ls = _lanes_select(inp.adcp_valid, new, ls, pad)
-    if inp.efforts is not None:
-        new, _ = puf.update_body_efforts_lanes(
-            ls, params, inp.efforts, inp.efforts_cov, **it
-        )
-        ls = _lanes_select(inp.efforts_valid, new, ls, pad)
-
-    if inp.z is not None:
-        new, _ = puf.update_model_lanes("z_position", ls, inp.z, inp.z_cov, **it)
-        ls = _lanes_select(inp.z_valid, new, ls, pad)
-    gps_accepted = None
-    if inp.gps is not None:
-        gps_in_body = consts.gps_in_body if consts is not None else None
-        new, gps_info = gps_update_lanes(
-            ls, params, inp.gps[:, 0], inp.gps[:, 1], inp.gps_cov, gps_in_body,
-            nb=nb, **it,
-        )
-        ls = _lanes_select(inp.gps_valid, new, ls, pad)
-        gps_accepted = inp.gps_valid & gps_info.accepted
-    if inp.delayed_xy is not None:
-        new, _ = delayed_xy_update_lanes(
-            ls, inp.delayed_xy, inp.delayed_xy_cov, inp.delayed_position,
-            nb=nb, **it,
-        )
-        ls = _lanes_select(inp.delayed_valid, new, ls, pad)
-    marker_nis = None
-    if inp.marker_features is not None:
-        if consts is None or consts.marker is None:
-            raise ValueError(
-                "schedule carries marker detections; pass "
-                "PoseStepConstants(marker=MarkerSetup(...))"
-            )
-        ms = consts.marker
-        # fused 59-DOF augmentation in VMEM (models/pose_marker_fused.py):
-        # marker ticks stay in kernel layout — no bank round trip, no
-        # per-corner 59×59 Cholesky through XLA (parity pinned by
-        # tests/test_marker_fused.py; round-trip-vs-fused cost measured in
-        # docs/TUNING.md "Marker ticks at fleet scale")
-        from . import pose_marker_fused as pmf
-
-        new, m_info = pmf.update_visual_features_lanes(
-            ls,
-            inp.marker_features,
-            inp.marker_feature_covs,
-            ms.feature_positions,
-            ms.marker_position,
-            ms.marker_orientation,
-            ms.cov_marker_pose,
-            ms.camera,
-            ms.camera_in_imu_position,
-            ms.camera_in_imu_orientation,
-            nb=nb,
-            **it,
-        )
-        ls = _lanes_select(inp.marker_valid, new, ls, pad)
-        marker_nis = jnp.where(inp.marker_valid[:, None], m_info.mahalanobis2, 0.0)
-
-    mu_b = ls.mu_t[:, :nb]
-    # one diagonal gather (valid in the lower-triangle-valid layout — the
-    # diagonal belongs to the half the kernels write) instead of 53 slices
-    cov_trace = jnp.diagonal(ls.cov_t, axis1=0, axis2=1).sum(axis=-1)[:nb]
-    zero = jnp.zeros_like(inp.dt)
-    out = TickOutput(
-        position=mu_b[0:3].T,
-        orientation=mu_b[3:7].T,
-        velocity=mu_b[7:10].T,
-        cov_trace=cov_trace,
-        dvl_nis=(
-            jnp.where(inp.dvl_valid, dvl_info.mahalanobis2, 0.0)
-            if dvl_info is not None
-            else zero
-        ),
-        adcp_accepted=(
-            inp.adcp_valid & adcp_info.accepted
-            if adcp_info is not None
-            else zero.astype(bool)
-        ),
-        gps_accepted=gps_accepted,
-        marker_nis=marker_nis,
-    )
-    return ls, out
-
-
-def run_trajectory_bank_lanes(
-    bstate: pukf.PoseUKFState,
-    params: pukf.PoseUKFParams,
-    inputs: PoseInputs,
-    consts: Optional[PoseStepConstants] = None,
-    *,
-    interpret: bool = False,
-) -> tuple[pukf.PoseUKFState, TickOutput]:
-    """Fleet replay with the bank held in kernel layout for the WHOLE scan:
-    one ``to_lanes`` in, one ``from_lanes`` out, fused kernels with in-kernel
-    measurement models every tick (:func:`pose_step_bank_lanes`). Same
-    semantics as :func:`run_trajectory_bank` — for shared parameter sets
-    (parity pinned by ``tests/test_full_mission.py::
-    test_run_trajectory_bank_lanes_matches_bank``) AND for banked
-    Monte-Carlo parameter sweeps (``tests/test_full_mission.py::
-    test_run_trajectory_bank_lanes_banked_params``): a banked ``params``
-    (leading bank axis on every leaf) pre-builds the fully-banked predict
-    operands once and closes over them as scan constants. The banked path
-    bakes the tick-0 prediction interval into those operands, so it requires
-    a constant ``dt`` across the schedule (what :func:`make_inputs`
-    produces)."""
-    from . import pose_fused as pf
-
-    nb = bstate.cov.shape[0]
-    ls0 = pf.to_lanes(bstate)
-    banked_ops = None
-    if params.process_noise.ndim == 3:
-        # the banked operands bake the prediction interval once — a
-        # variable-dt schedule would silently use tick-0's Q/decay scaling,
-        # so reject it loudly whenever dt is inspectable (outside jit; under
-        # jit the tracer can't be checked — the docstring requirement and
-        # this eager-path guard are the contract)
-        if not isinstance(inputs.dt, jax.core.Tracer):
-            dt_vals = np.asarray(inputs.dt)
-            if dt_vals.size and not np.all(dt_vals == dt_vals.flat[0]):
-                raise ValueError(
-                    "run_trajectory_bank_lanes with banked parameters "
-                    "requires a constant prediction interval (the banked "
-                    "predict operands bake dt once); this schedule's dt "
-                    f"varies over [{dt_vals.min()}, {dt_vals.max()}] — use "
-                    "run_trajectory_bank for variable-dt banked replays"
-                )
-        dt0 = inputs.dt[(0,) * inputs.dt.ndim]  # scalar tick-0 interval
-        banked_ops = pf.banked_predict_operands(
-            params, dt0, bstate.cov.dtype, ls0.cov_t.shape[-1]
-        )
-    ls_f, outs = jax.lax.scan(
-        lambda ls, i: pose_step_bank_lanes(
-            ls, params, i, consts, nb=nb, interpret=interpret, banked_ops=banked_ops
-        ),
-        ls0,
-        inputs,
-    )
-    return pf.from_lanes(ls_f, bstate), outs

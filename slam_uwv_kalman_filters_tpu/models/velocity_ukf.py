@@ -1,4 +1,4 @@
-"""VelocityUKF — model-aided velocity filter, TPU-native.
+"""VelocityUKF — model-aided velocity filter.
 
 Re-implements the reference ``VelocityUKF`` (``/root/reference/src/VelocityUKF.hpp``,
 ``src/VelocityUKF.cpp``): a 4-DOF UKF over {velocity ℝ³, z_position ℝ¹}
@@ -195,9 +195,8 @@ def update_pressure(
 
 
 # ---------------------------------------------------------------------------
-# Bank-level entry points (leading bank axis on every state leaf) with
-# auto-dispatch to the fused Pallas kernel (models/velocity_fused.py) on the
-# TPU f32 shared-parameter path — mirrors pose_ukf.predict_bank/update_*_bank.
+# Bank-level entry points (leading bank axis on every state leaf) — mirror
+# pose_ukf.predict_bank/update_*_bank.
 # ---------------------------------------------------------------------------
 
 
@@ -230,68 +229,32 @@ def _broadcast_params_bank(params: VelocityUKFParams, nb: int) -> VelocityUKFPar
     return params._replace(model=model, process_noise=b(params.process_noise, 2))
 
 
-def _fused_ok(bstate: VelocityUKFState, params: VelocityUKFParams) -> bool:
-    return (
-        bstate.cov.dtype == jnp.float32
-        and bstate.cov.ndim == 3
-        and not _params_banked(params)  # fused kernel takes one shared set
-        and jax.default_backend() == "tpu"
-    )
-
-
 def predict_bank(
-    bstate: VelocityUKFState, params: VelocityUKFParams, dt, *, use_fused: str | bool = "auto"
+    bstate: VelocityUKFState, params: VelocityUKFParams, dt
 ) -> VelocityUKFState:
-    """Bank-level prediction. On the TPU f32 shared-parameter path this is
-    ONE Pallas launch for the whole bank (sigma propagation through the full
-    Fossen dynamics + tracker advance, ``models/velocity_fused.py``) —
-    measured ~20× the generic ``vmap`` chain at bank 32k on a v5e; falls
-    back to ``vmap(predict)`` for f64 oracle runs, CPU, and parameter
-    sweeps (banked ``params``). ``use_fused="interpret"`` forces the fused
-    route in Pallas interpret mode (tests exercise the real dispatch branch
-    off-TPU)."""
-    interpret = use_fused == "interpret"
-    if use_fused == "auto":
-        use_fused = _fused_ok(bstate, params)
-    if use_fused:
-        from . import velocity_fused
-
-        return velocity_fused.predict_fused_banked(bstate, params, dt, interpret=interpret)
+    """Bank-level prediction: ``vmap(predict)`` over the bank. Parameter
+    sweeps (banked ``params``, any leaf) vmap the parameters alongside."""
     if _params_banked(params):  # per-instance parameter bank (sweeps)
         pb = _broadcast_params_bank(params, bstate.cov.shape[0])
         return jax.vmap(lambda s, p: predict(s, p, dt))(bstate, pb)
     return jax.vmap(lambda s: predict(s, params, dt))(bstate)
 
 
-def _update_bank(model, fn, bstate, z, meas_cov, use_fused):
-    interpret = use_fused == "interpret"
-    if use_fused == "auto":
-        use_fused = (
-            bstate.cov.dtype == jnp.float32
-            and bstate.cov.ndim == 3
-            and jax.default_backend() == "tpu"
-        )
-    if use_fused:
-        from . import velocity_fused
-
-        return velocity_fused.update_model_fused_banked(
-            model, bstate, z, meas_cov, interpret=interpret
-        )
+def _update_bank(fn, bstate, z, meas_cov):
     rr = jnp.broadcast_to(
         jnp.asarray(meas_cov, bstate.cov.dtype), (bstate.cov.shape[0], z.shape[-1], z.shape[-1])
     )
     return jax.vmap(fn)(bstate, z, rr)
 
 
-def update_dvl_bank(bstate, z, meas_cov, *, use_fused="auto"):
-    """Bank-level DVL update (``src/VelocityUKF.cpp:79-85``); fused in-kernel
-    linear-measurement tail on the TPU f32 path."""
-    return _update_bank("dvl", update_dvl, bstate, z, meas_cov, use_fused)
+def update_dvl_bank(bstate, z, meas_cov):
+    """Bank-level DVL update (``src/VelocityUKF.cpp:79-85``)."""
+    return _update_bank(update_dvl, bstate, z, meas_cov)
 
 
-def update_pressure_bank(bstate, z, meas_cov, *, use_fused="auto"):
+def update_pressure_bank(bstate, z, meas_cov):
     """Bank-level pressure→depth update (``src/VelocityUKF.cpp:106-112``)."""
-    return _update_bank("pressure", update_pressure, bstate, z, meas_cov, use_fused)
+    return _update_bank(update_pressure, bstate, z, meas_cov)
 
 
 def integrate_gyro(state: VelocityUKFState, rates: jax.Array) -> VelocityUKFState:

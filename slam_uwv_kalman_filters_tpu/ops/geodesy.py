@@ -1,6 +1,6 @@
 """Geodesy and earth models — the ``pose_estimation`` geographic layer, in JAX.
 
-TPU-native replacements for the external components the reference pulls from
+JAX replacements for the external components the reference pulls from
 ``pose_estimation`` (rock-slam):
 
 * ``GeographicProjection(lat0, lon0)`` with ``navToWorld``/``worldToNav``

@@ -1,26 +1,28 @@
-"""Pallas TPU kernels for the filter hot path.
+"""Banked factorizations of the filter hot path, and the one place that
+chooses how they run.
 
-Profiling on a real v5e chip (chained measurements, bank=8192, f32) shows the
-batched 53×53 Cholesky factorization dominating the PoseUKF step: XLA's
-``cholesky`` costs ~52 ms of the ~70 ms predict (the MXU matmuls and the
-whole process model together are <20 ms). XLA lowers small-matrix Cholesky
-through a blocked while-loop expander that re-touches the full (N,53,53)
-buffer every block — ~11 GB of HBM traffic per call.
+Every unscented predict and update starts from the ukfom sigma-point deltas
+of the covariance: row 0 zero, rows 2j+1 / 2j+2 the ±j-th column of
+L = chol(P). The 53-DOF PoseUKF covariance mixes variances from ~1e-11
+(damping parameters) to ~1e1 (velocity) — condition ~1e12 in raw units,
+beyond f32 — so the factor is taken **diagonally equilibrated**:
+L = D·chol(D⁻¹·P·D⁻¹) with D = √diag(P), exact in infinite precision, with a
+well-conditioned correlation matrix in the middle.
 
-:func:`cholesky_banked` replaces it with a Pallas kernel using a
-**batch-on-lanes** layout: the bank is tiled into lane groups of 128
-instances, a matrix element (i,j) of all 128 instances lives in one lane
-vector, and the factorization runs the right-looking outer-product form with
-53 rank-1 VPU updates over a (53,53,128) VMEM tile. The matrix *column*
-index sits on the untiled leading axis and the loop is statically unrolled,
-so each iteration is a static-slice read/write of only the trailing columns
-— ~n³/2·B FMAs total, no mask arithmetic, no loops over HBM; total HBM
-traffic = one read + one write of the bank.
+:func:`sigma_delta_route` is the single dispatch point. It picks one of
 
-The wrapper pads the bank to a lane multiple, transposes in/out with XLA
-(cheap, bandwidth-bound), runs in interpret mode off-TPU (so the same code
-path is unit-testable on CPU), and falls back to the unrolled scalar
-factorization from ``linalg_small`` for small static sizes.
+* ``"unrolled"`` — n ≤ ``UNROLL_LIMIT``: fully unrolled scalar Cholesky
+  (``linalg_small``), which XLA fuses into the surrounding graph;
+* ``"triton"`` — f32 on a GPU, n ≤ ``KERNEL_MAX_N``: one Pallas kernel
+  through Triton (:func:`sigma_deltas_triton`) that reads each covariance
+  once and writes its deltas once;
+* ``"xla"`` — everything else (CPU, f64 oracles): equilibrate, batched
+  ``jnp.linalg.cholesky``, un-equilibrate, ± interleave
+  (:func:`sigma_deltas_xla`, also the reference the kernel is tested
+  against).
+
+Pallas interpret mode is never chosen here: only tests ask for it, by
+calling :func:`sigma_deltas_triton` with ``interpret=True``.
 """
 
 from __future__ import annotations
@@ -30,265 +32,158 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from . import linalg_small
-from .linalg_small import UNROLL_LIMIT, cholesky_unrolled
+from .linalg_small import UNROLL_LIMIT, cholesky_unrolled, solve_spd
 
 __all__ = [
+    "KERNEL_MAX_N",
     "cholesky_banked",
+    "sigma_delta_route",
     "sigma_deltas_banked",
     "sigma_deltas_fast",
+    "sigma_deltas_triton",
+    "sigma_deltas_xla",
     "solve_spd_banked",
-    "solve_spd_fast",
-    "LANE_TILE",
 ]
 
-LANE_TILE = 128  # instances per lane group (hardware lane width)
+# The kernel pads each matrix to KERNEL_MAX_N × KERNEL_MAX_N (Triton tensors
+# have power-of-two shapes) with an identity tail. 64 covers the 53-DOF
+# PoseUKF and its 59-DOF marker augmentation.
+KERNEL_MAX_N = 64
 
 
-def lane_block_spec(*shape) -> pl.BlockSpec:
-    """BlockSpec of a bank-on-lanes operand: block ``(*shape, LANE_TILE)``
-    with the grid over the lane (bank) axis — the single definition of the
-    lanes protocol shared by every kernel launcher."""
-    return pl.BlockSpec(
-        (*shape, LANE_TILE), lambda i: (*(0,) * len(shape), i), memory_space=pltpu.VMEM
-    )
+def sigma_delta_route(n: int, dtype, platform: str | None = None) -> str:
+    """How an (N, n, n) bank of ``dtype`` covariances is factored on
+    ``platform`` (default: JAX's default backend): ``"unrolled"``,
+    ``"triton"`` or ``"xla"`` — see the module docstring."""
+    if n <= UNROLL_LIMIT:
+        return "unrolled"
+    platform = jax.default_backend() if platform is None else platform
+    if platform == "gpu" and jnp.dtype(dtype) == jnp.float32 and n <= KERNEL_MAX_N:
+        return "triton"
+    return "xla"
 
 
-def full_block_spec(*shape) -> pl.BlockSpec:
-    """BlockSpec of an operand replicated to every lane block (shared
-    scalars/params packed as trailing size-1 lane axes)."""
-    return pl.BlockSpec(shape, lambda i: (0,) * len(shape), memory_space=pltpu.VMEM)
+def _equilibrate(cov: jax.Array) -> tuple[jax.Array, jax.Array]:
+    """(D⁻¹·P·D⁻¹, √diag(P)) of an (N, n, n) bank."""
+    var = jnp.diagonal(cov, axis1=-2, axis2=-1)
+    tiny = jnp.asarray(jnp.finfo(cov.dtype).tiny, cov.dtype)
+    d = jnp.sqrt(jnp.maximum(var, tiny))
+    return cov / (d[:, :, None] * d[:, None, :]), d
 
 
-def _cholesky_lanes_kernel(a_ref, out_ref):
-    """Right-looking Cholesky over a (n, n, LANE_TILE) tile, batch on lanes,
-    with the tile in **column-major matrix layout**: axis 0 = matrix column
-    (the untiled dimension), axis 1 = matrix row (sublanes), axis 2 = lane
-    batch.
-
-    The factorization loop is statically unrolled (n is a compile-time
-    constant), so column j is a *static slice* ``ref[j]`` on the untiled axis
-    and the Schur downdate touches only the trailing ``ref[j+1:]`` slab —
-    total work is ~n³/2·B FMAs, versus ~4n³·B for the mask-arithmetic
-    formulation this replaces (measured 6.4× faster on a v5e at n=53).
-
-    Invariant before iteration j: columns < j of ``out`` hold final L
-    columns (zeros above the diagonal); columns ≥ j hold the Schur-downdated
-    trailing submatrix in rows ≥ j (rows < j still hold stale input values,
-    which are masked out when the column is finalized).
-    """
-    n, _, b = a_ref.shape
-    row = jax.lax.broadcasted_iota(jnp.int32, (n, b), 0)
-    out_ref[:] = a_ref[:]
-    # Same sublane-aligned triangular restriction as the equilibrated core
-    # above: column j is only read at rows ≥ j, so compute and downdate only
-    # the aligned row tail [rs(j):] and overwrite the head with exact zeros
-    # when the column is finalized (~⅓ fewer FMAs/VMEM writes).
-    for j in range(n):
-        rs = (j // 8) * 8
-        colt = out_ref[j, rs:]  # (n-rs, B) row tail of column j
-        d = jnp.sqrt(colt[j - rs : j - rs + 1])  # (1, B) pivot
-        rowt = row[rs:]
-        belowt = jnp.where(rowt > j, colt * (1.0 / d), jnp.zeros((), colt.dtype))
-        finalt = jnp.where(rowt == j, d, belowt)
-        out_ref[j] = (
-            jnp.concatenate([jnp.zeros((rs, b), finalt.dtype), finalt], axis=0)
-            if rs
-            else finalt
-        )
-        if j + 1 < n:
-            # rank-1 downdate of trailing columns k > j: A[k] -= L[k,j]·L[:,j]
-            rs2 = ((j + 1) // 8) * 8
-            out_ref[j + 1 :, rs2:] = out_ref[j + 1 :, rs2:] - (
-                belowt[j + 1 - rs :][:, None, :] * belowt[rs2 - rs :][None, :, :]
-            )
-
-
-def _cholesky_lanes(x_t: jax.Array, *, interpret: bool) -> jax.Array:
-    """x_t: (n, n, N) with N a multiple of LANE_TILE."""
-    n, _, nb = x_t.shape
-    grid = (nb // LANE_TILE,)
-    return pl.pallas_call(
-        _cholesky_lanes_kernel,
-        out_shape=jax.ShapeDtypeStruct((n, n, nb), x_t.dtype),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((n, n, LANE_TILE), lambda i: (0, 0, i), memory_space=pltpu.VMEM)
-        ],
-        out_specs=pl.BlockSpec((n, n, LANE_TILE), lambda i: (0, 0, i), memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(x_t)
-
-
-def equilibrated_sigma_columns(a_ref, s_ref, write_column, *, keep_columns=False):
-    """Shared core of the sigma-delta kernels: equilibrated right-looking
-    Cholesky over an (n, n, B) (col, row, B) covariance tile, emitting the
-    un-equilibrated columns of L = D·chol(D⁻¹·A·D⁻¹), D = √diag(A), through
-    ``write_column(j, final)`` as each finishes. Used by the standalone
-    sigma-delta kernel below and the fused PoseUKF kernels
-    (``models/pose_fused.py`` / ``pose_update_fused.py``) so a numerical
-    change propagates to all. ``s_ref``: (n, n, B) scratch for the
-    equilibrated Schur complement.
-
-    ``keep_columns=True`` persists each FINALIZED equilibrated column in
-    ``s_ref[j]`` full-width — explicit zero head, the pivot √ on the
-    diagonal, the below-vector underneath — so the whole factor is
-    recoverable after the loop as ``s_ref[j]·dvec`` (``write_column`` may
-    then be ``None``). Safe because every in-panel/slab downdate reads a
-    prior column only at rows STRICTLY below its diagonal. Returns ``dvec``
-    (the (n, B) un-equilibration row scale √diag(A))."""
-    n, _, b = a_ref.shape
-    row = jax.lax.broadcasted_iota(jnp.int32, (n, b), 0)
-    tiny = jnp.asarray(jnp.finfo(a_ref.dtype).tiny, a_ref.dtype)
-    diag = jnp.concatenate([a_ref[j, j : j + 1, :] for j in range(n)], axis=0)  # (n,B)
-    dvec = jnp.sqrt(jnp.maximum(diag, tiny))
-    dinv = 1.0 / dvec
-    # Triangular restriction, sublane-aligned: column j is only ever READ at
-    # rows ≥ j (the diagonal pivot and the below-diagonal tail — rows < j are
-    # masked or overwritten with the explicit zeros head), so all compute and
-    # scratch writes run on the aligned row tail [jb:] of the 8-column block
-    # holding j. This drops ~⅓ of the factorization's FMAs/VMEM writes and
-    # makes the whole core tolerant of half-valid inputs (a_ref rows < j of a
-    # column are never read).
-    #
-    # Blocked (rank-16) Schur downdates: the classic right-looking loop
-    # re-reads and re-writes the whole trailing slab once PER COLUMN. Here
-    # columns are factored in sublane-aligned panels of 16 — within a panel
-    # the (column-sized) downdates of earlier panel columns are applied on
-    # the fly — and the trailing slab gets ONE fused rank-16 update per
-    # panel: 16× fewer slab read-modify-writes. Equivalent math, NOT
-    # bit-identical to a per-column right-looking loop: in-panel downdates
-    # apply sequentially (and over the aligned row tail) while the slab
-    # update sums the rank-16 products before one subtract, so f32 results
-    # differ at the ulp level across panel-width changes. Panel 16 measured
-    # ~1% over panel 8; larger panels grow the in-panel column downdates
-    # quadratically.
-    for j in range(n):
-        rs = (j // 8) * 8
-        s_ref[j, rs:] = a_ref[j, rs:] * (dinv[j : j + 1, :] * dinv[rs:])
-    for jb in range(0, n, 16):
-        je = min(jb + 16, n)
-        rowt = row[jb:]
-        for j in range(jb, je):
-            colt = s_ref[j, jb:]  # (n-jb, B): downdated by all panels < jb
-            for jj in range(jb, j):  # pending downdates from this panel
-                bt = s_ref[jj, jb:]  # materialized below-vector of column jj
-                colt = colt - bt[j - jb : j - jb + 1] * bt
-            dj = jnp.sqrt(colt[j - jb : j - jb + 1])
-            belowt = jnp.where(rowt > j, colt * (1.0 / dj), jnp.zeros((), colt.dtype))
-            if write_column is not None:
-                finalt = jnp.where(rowt == j, dj, belowt) * dvec[jb:]  # un-equilibrated
-                final = (
-                    jnp.concatenate([jnp.zeros((jb, b), finalt.dtype), finalt], axis=0)
-                    if jb
-                    else finalt
-                )
-                write_column(j, final)
-            # materialize the below-vector over its (now dead) scratch column:
-            # panel mates and the slab update read it back as a value, which
-            # keeps every expression tree linear (leaving the belows as lazy
-            # expressions nests each column's tree inside the next —
-            # exponential blowup that stalls the Mosaic compiler). In
-            # keep_columns mode the store is full-width with the pivot on the
-            # diagonal; downstream in-panel/slab reads only touch rows below
-            # the diagonal, so the finalized form is read-compatible.
-            if keep_columns:
-                kept = jnp.where(rowt == j, dj, belowt)
-                s_ref[j] = (
-                    jnp.concatenate([jnp.zeros((jb, b), kept.dtype), kept], axis=0)
-                    if jb
-                    else kept
-                )
-            else:
-                s_ref[j, jb:] = belowt
-        if je < n:
-            cut = je - jb
-            upd = None
-            for jj in range(jb, je):
-                bt = s_ref[jj, jb:]
-                term = bt[cut:][:, None, :] * bt[cut:][None, :, :]
-                upd = term if upd is None else upd + term
-            s_ref[je:, je:] = s_ref[je:, je:] - upd
-    return dvec
-
-
-def _sigma_deltas_kernel(a_ref, out_ref, s_ref):
-    """Fused equilibrated Cholesky → interleaved sigma-point deltas.
-
-    a_ref: raw covariance tile in (col, row, B) layout (B = lanes).
-    out_ref: (2n+1, n, B) ukfom-ordered tangent deltas — row 0 zero, rows
-    2j+1 / 2j+2 the ±j-th column of L.
-
-    Fusing the diagonal equilibration, the factorization and the ±column
-    interleave into one kernel removes two full XLA passes over the bank and
-    the (bank, 2n, n) stack/reshape relayout that otherwise costs two
-    materializations of the delta tensor (~1.2 ms per 8192-bank call).
-    """
-    n, _, b = a_ref.shape
-    out_ref[0] = jnp.zeros((n, b), a_ref.dtype)
-
-    def write_column(j, final):
-        out_ref[2 * j + 1] = final
-        out_ref[2 * j + 2] = -final
-
-    equilibrated_sigma_columns(a_ref, s_ref, write_column)
-
-
-def _sigma_deltas_lanes(x_t: jax.Array, *, interpret: bool) -> jax.Array:
-    """x_t: (n, n, N) col-major covariance, N a multiple of LANE_TILE →
-    (2n+1, n, N) interleaved deltas."""
-    n, _, nb = x_t.shape
-    return pl.pallas_call(
-        _sigma_deltas_kernel,
-        out_shape=jax.ShapeDtypeStruct((2 * n + 1, n, nb), x_t.dtype),
-        grid=(nb // LANE_TILE,),
-        in_specs=[pl.BlockSpec((n, n, LANE_TILE), lambda i: (0, 0, i), memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec(
-            (2 * n + 1, n, LANE_TILE), lambda i: (0, 0, i), memory_space=pltpu.VMEM
-        ),
-        scratch_shapes=[pltpu.VMEM((n, n, LANE_TILE), x_t.dtype)],
-        interpret=interpret,
-    )(x_t)
-
-
-@partial(jax.jit, static_argnames=("force_pallas",))
-def sigma_deltas_banked(cov: jax.Array, force_pallas: bool = False) -> jax.Array:
-    """(N, n, n) SPD batch → (N, 2n+1, n) ukfom sigma-point tangent deltas.
-
-    TPU path: one fused Pallas launch (equilibrated Cholesky + ±interleave).
-    Fallback (CPU / tiny banks / small n): compose :func:`cholesky_banked`
-    with the stack-interleave — bit-identical layout either way.
-    """
+@jax.jit
+def cholesky_banked(cov: jax.Array) -> jax.Array:
+    """Lower Cholesky of an (N, n, n) or (n, n) SPD batch: unrolled for
+    n ≤ ``UNROLL_LIMIT``, otherwise the equilibrated
+    ``jnp.linalg.cholesky``."""
     single = cov.ndim == 2
     if single:
         cov = cov[None]
-    n = cov.shape[-1]
-    use_pallas = (
-        force_pallas or (_on_tpu() and cov.shape[0] >= 64 and cov.dtype == jnp.float32)
-    ) and n > UNROLL_LIMIT
-    if not use_pallas:
-        L = cholesky_banked(cov, force_pallas=force_pallas)
-        cols = jnp.swapaxes(L, -1, -2)  # (N, n, n): row j = column j of L
-        pm = jnp.stack([cols, -cols], axis=-2).reshape(cov.shape[0], 2 * n, n)
-        out = jnp.concatenate([jnp.zeros((cov.shape[0], 1, n), cov.dtype), pm], axis=-2)
-        return out[0] if single else out
-    nb = cov.shape[0]
-    pad = (-nb) % LANE_TILE
-    if pad:
-        eye = jnp.broadcast_to(jnp.eye(n, dtype=cov.dtype), (pad, n, n))
-        cov = jnp.concatenate([cov, eye], axis=0)
-    x_t = jnp.transpose(cov, (2, 1, 0))  # (col, row, batch): batch → lanes
-    d_t = _sigma_deltas_lanes(x_t, interpret=not _on_tpu())
-    out = jnp.transpose(d_t, (2, 0, 1))[:nb]  # (batch, 2n+1, n)
+    if cov.shape[-1] <= UNROLL_LIMIT:
+        out = cholesky_unrolled(cov)
+    else:
+        corr, d = _equilibrate(cov)
+        out = jnp.linalg.cholesky(corr) * d[:, :, None]
+    return out[0] if single else out
+
+
+@jax.jit
+def sigma_deltas_xla(cov: jax.Array) -> jax.Array:
+    """(N, n, n) SPD bank → (N, 2n+1, n) ukfom deltas through XLA:
+    :func:`cholesky_banked`, then the ± interleave of the factor's columns."""
+    nb, n = cov.shape[0], cov.shape[-1]
+    cols = jnp.swapaxes(cholesky_banked(cov), -1, -2)  # row j = column j of L
+    pm = jnp.stack([cols, -cols], axis=-2).reshape(nb, 2 * n, n)
+    return jnp.concatenate([jnp.zeros((nb, 1, n), cov.dtype), pm], axis=-2)
+
+
+def _sigma_deltas_kernel(a_ref, o_ref, *, n: int, nb: int, group: int):
+    """``group`` instances per program, each padded to P×P in registers.
+
+    a_ref: the (N·n·n,) flattened covariance bank; o_ref: the flattened
+    (N·(2n+1)·n,) deltas. The correlation matrix is factored by n
+    right-looking steps: column j is pulled out with a masked reduction,
+    scaled by its pivot, written out as delta rows 2j+1 / 2j+2 (times √diag,
+    which undoes the equilibration), and removed from the trailing matrix
+    by a rank-1 downdate. Padded rows/columns carry an identity, so they
+    never feed a NaN into a real entry and are never stored."""
+    p = KERNEL_MAX_N
+    m = 2 * n + 1
+    inst = pl.program_id(0) * group + jnp.arange(group)  # (G,)
+    g3 = inst[:, None, None]
+    r3 = jnp.arange(p)[None, :, None]
+    c3 = jnp.arange(p)[None, None, :]
+    inside = (g3 < nb) & (r3 < n) & (c3 < n)
+    a = plgpu.load(a_ref.at[(g3 * n + r3) * n + c3], mask=inside, other=0.0)
+    a = jnp.where((r3 == c3) & (r3 >= n), 1.0, a)  # identity tail
+    diag = jnp.sum(jnp.where(r3 == c3, a, 0.0), axis=2)  # (G, P)
+    tiny = jnp.finfo(a.dtype).tiny
+    d = jnp.sqrt(jnp.maximum(diag, tiny))
+    dinv = 1.0 / d
+    s = a * dinv[:, :, None] * dinv[:, None, :]
+
+    g2 = inst[:, None]  # (G, 1)
+    r2 = jnp.arange(p)[None, :]  # (1, P)
+    row_ok = (g2 < nb) & (r2 < n)
+    row0 = (g2 * m) * n + r2
+    plgpu.store(o_ref.at[row0], jnp.zeros((group, p), a.dtype), mask=row_ok)
+
+    def step(j, s):
+        col = jnp.sum(jnp.where(c3 == j, s, 0.0), axis=2)  # (G, P): S[:, j]
+        piv = jnp.sum(jnp.where(r2 == j, col, 0.0), axis=1, keepdims=True)
+        lj = jnp.where(r2 >= j, col * (1.0 / jnp.sqrt(piv)), 0.0)
+        delta = lj * d
+        plus = (g2 * m + 2 * j + 1) * n + r2
+        plgpu.store(o_ref.at[plus], delta, mask=row_ok)
+        plgpu.store(o_ref.at[plus + n], -delta, mask=row_ok)
+        return s - lj[:, :, None] * lj[:, None, :]
+
+    jax.lax.fori_loop(0, n, step, s)
+
+
+@partial(jax.jit, static_argnames=("interpret", "group", "num_warps"))
+def sigma_deltas_triton(
+    cov: jax.Array, *, interpret: bool = False, group: int = 1, num_warps: int = 4
+) -> jax.Array:
+    """(N, n, n) f32 SPD bank → (N, 2n+1, n) ukfom deltas in one Pallas
+    kernel through Triton, same values as :func:`sigma_deltas_xla`.
+    ``interpret=True`` runs it in the Pallas interpreter (CPU tests)."""
+    nb, n = cov.shape[0], cov.shape[-1]
+    if not UNROLL_LIMIT < n <= KERNEL_MAX_N:
+        raise ValueError(f"sigma_deltas_triton takes {UNROLL_LIMIT} < n <= {KERNEL_MAX_N}, got {n}")
+    if cov.dtype != jnp.float32:
+        raise ValueError(f"sigma_deltas_triton takes float32, got {cov.dtype}")
+    out = pl.pallas_call(
+        partial(_sigma_deltas_kernel, n=n, nb=nb, group=group),
+        out_shape=jax.ShapeDtypeStruct((nb * (2 * n + 1) * n,), cov.dtype),
+        grid=(pl.cdiv(nb, group),),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps, num_stages=1),
+        interpret=interpret,
+        name="sigma_deltas",
+    )(cov.reshape(-1))
+    return out.reshape(nb, 2 * n + 1, n)
+
+
+@jax.jit
+def sigma_deltas_banked(cov: jax.Array) -> jax.Array:
+    """(N, n, n) or (n, n) SPD → (N, 2n+1, n) or (2n+1, n) ukfom sigma-point
+    tangent deltas, by the route :func:`sigma_delta_route` picks."""
+    single = cov.ndim == 2
+    if single:
+        cov = cov[None]
+    route = sigma_delta_route(cov.shape[-1], cov.dtype)
+    out = sigma_deltas_triton(cov) if route == "triton" else sigma_deltas_xla(cov)
     return out[0] if single else out
 
 
 @jax.custom_batching.custom_vmap
 def sigma_deltas_fast(cov: jax.Array) -> jax.Array:
-    """ukfom sigma-point deltas of one (n, n) SPD matrix; bank-optimal under
-    vmap (whole bank in one fused Pallas launch)."""
+    """ukfom sigma-point deltas of one (n, n) SPD matrix. Under ``vmap`` the
+    whole bank goes to :func:`sigma_deltas_banked` in one call, so the
+    per-instance filter code in ``ops/ukf.py`` reaches the banked kernel."""
     return sigma_deltas_banked(cov)
 
 
@@ -305,199 +200,15 @@ def _sigma_deltas_fast_vmap(axis_size, in_batched, cov):
     return out.reshape(lead + (2 * n + 1, n)), True
 
 
-def _on_tpu() -> bool:
-    return jax.default_backend() == "tpu"
-
-
-@partial(jax.jit, static_argnames=("force_pallas",))
-def cholesky_banked(cov: jax.Array, force_pallas: bool = False) -> jax.Array:
-    """Lower Cholesky of a batch of SPD matrices, TPU-optimal.
-
-    * ``cov`` (N, n, n) or (n, n).
-    * n ≤ 8 → fully unrolled scalar factorization (fuses, no kernel launch);
-    * TPU (or ``force_pallas`` for interpret-mode testing) → the
-      batch-on-lanes Pallas kernel;
-    * otherwise → ``jnp.linalg.cholesky`` (LAPACK on CPU is already fast).
-
-    Large (filter-state) covariances are **diagonally equilibrated** first:
-    L = D·chol(D⁻¹·P·D⁻¹) with D = √diag(P), which is exact in infinite
-    precision and removes the raw-unit dynamic range (the 53-DOF PoseUKF
-    covariance mixes variances from ~1e-11 (damping parameters) to ~1e0
-    (velocity), condition ~1e12 — beyond f32 without equilibration; the
-    correlation matrix is well-conditioned).
-    """
-    single = cov.ndim == 2
-    if single:
-        cov = cov[None]
-    n = cov.shape[-1]
-    if n <= UNROLL_LIMIT:
-        out = cholesky_unrolled(cov)
-        return out[0] if single else out
-
-    # diagonal equilibration (elementwise — fuses with the layout transpose)
-    var = jnp.diagonal(cov, axis1=-2, axis2=-1)
-    tiny = jnp.asarray(jnp.finfo(cov.dtype).tiny, cov.dtype)
-    d = jnp.sqrt(jnp.maximum(var, tiny))
-    cov = cov / (d[:, :, None] * d[:, None, :])
-    # Small banks don't amortize the lane-tile padding (and may execute on a
-    # CPU device inside a TPU-default process, where non-interpret Pallas
-    # cannot run) — use the library kernel there.
-    # dtype gate: Mosaic cannot lower f64 — an x64 oracle run on a TPU-default
-    # host must take the library path, not the kernel
-    use_pallas = force_pallas or (
-        _on_tpu() and cov.shape[0] >= 64 and cov.dtype == jnp.float32
-    )
-    if not use_pallas:
-        out = jnp.linalg.cholesky(cov)
-    else:
-        nb = cov.shape[0]
-        pad = (-nb) % LANE_TILE
-        if pad:
-            eye = jnp.broadcast_to(jnp.eye(n, dtype=cov.dtype), (pad, n, n))
-            cov = jnp.concatenate([cov, eye], axis=0)
-        x_t = jnp.transpose(cov, (2, 1, 0))  # (col, row, batch): batch → lanes
-        l_t = _cholesky_lanes(x_t, interpret=not _on_tpu())
-        out = jnp.transpose(l_t, (2, 1, 0))[:nb]
-    out = out * d[:, :, None]  # undo the equilibration: L = D·chol(corr)
-    return out[0] if single else out
-
-
-# ---------------------------------------------------------------------------
-# vmap-aware entry point: per-instance filter code (ops/ukf.py) calls
-# ``cholesky_fast`` on a single (n, n) matrix; when the whole filter step is
-# vmapped over a bank, this custom batching rule routes the entire stacked
-# bank into one banked kernel launch instead of N tiny factorizations.
-# ---------------------------------------------------------------------------
-
-
-@jax.custom_batching.custom_vmap
-def cholesky_fast(cov: jax.Array) -> jax.Array:
-    """Lower Cholesky of one SPD matrix; bank-optimal under vmap."""
-    return cholesky_banked(cov)
-
-
-@cholesky_fast.def_vmap
-def _cholesky_fast_vmap(axis_size, in_batched, cov):
-    del axis_size
-    (batched,) = in_batched
-    if not batched:
-        return cholesky_banked(cov), False
-    lead = cov.shape[: cov.ndim - 2]
-    flat = cov.reshape((-1,) + cov.shape[-2:])
-    out = cholesky_banked(flat).reshape(lead + cov.shape[-2:])
-    return out, True
-
-
-def _solve_spd_kernel(a_ref, b_ref, out_ref, l_ref, s_ref):
-    """Banked SPD solve X = A⁻¹B over (col, row, B)-layout tiles.
-
-    One launch fuses the equilibrated Cholesky (shared core above) with the
-    two statically-unrolled triangular substitutions — the "Kalman-gain
-    triangular solves" kernel of the north-star list. Right-looking forward
-    pass (the update of trailing rows mirrors the Cholesky downdate), then an
-    inner-product backward pass on Lᵀ using the same stored columns.
-
-    a_ref: (n, n, B) SPD matrices; b_ref: (n, k, B) right-hand sides;
-    l_ref: (n, n, B) scratch for the factor columns; s_ref: Schur scratch.
-    """
-    n = a_ref.shape[0]
-
-    def write_column(j, col):
-        l_ref[j] = col
-
-    equilibrated_sigma_columns(a_ref, s_ref, write_column)
-    # forward substitution  L·Y = B  (Y accumulates in out_ref)
-    out_ref[:] = b_ref[:]
-    for j in range(n):
-        col = l_ref[j]  # (n, B) column j of L
-        yj = out_ref[j] * (1.0 / col[j : j + 1])  # (k, B)
-        out_ref[j] = yj
-        if j + 1 < n:
-            out_ref[j + 1 :] = out_ref[j + 1 :] - col[j + 1 :][:, None, :] * yj[None]
-    # backward substitution  Lᵀ·X = Y  (in place, descending)
-    for j in reversed(range(n)):
-        col = l_ref[j]
-        if j + 1 < n:
-            s = jnp.sum(col[j + 1 :][:, None, :] * out_ref[j + 1 :], axis=0)
-            out_ref[j] = (out_ref[j] - s) * (1.0 / col[j : j + 1])
-        else:
-            out_ref[j] = out_ref[j] * (1.0 / col[j : j + 1])
-
-
-def _solve_spd_lanes(a_t: jax.Array, b_t: jax.Array, *, interpret: bool) -> jax.Array:
-    n, _, nb = a_t.shape
-    k = b_t.shape[1]
-    return pl.pallas_call(
-        _solve_spd_kernel,
-        out_shape=jax.ShapeDtypeStruct((n, k, nb), a_t.dtype),
-        grid=(nb // LANE_TILE,),
-        in_specs=[
-            pl.BlockSpec((n, n, LANE_TILE), lambda i: (0, 0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((n, k, LANE_TILE), lambda i: (0, 0, i), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((n, k, LANE_TILE), lambda i: (0, 0, i), memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((n, n, LANE_TILE), a_t.dtype),
-            pltpu.VMEM((n, n, LANE_TILE), a_t.dtype),
-        ],
-        interpret=interpret,
-    )(a_t, b_t)
-
-
-@partial(jax.jit, static_argnames=("force_pallas",))
-def solve_spd_banked(spd: jax.Array, rhs: jax.Array, force_pallas: bool = False) -> jax.Array:
-    """X = A⁻¹B for a batch of SPD systems, TPU-optimal.
-
-    ``spd`` (N, n, n), ``rhs`` (N, n, k) → (N, n, k). Large-n banks on TPU go
-    through one fused Pallas launch (equilibrated Cholesky + both triangular
-    substitutions); small n uses the fully-unrolled scalar path and other
-    configurations LAPACK/XLA ``cho_solve``.
-    """
-    n = spd.shape[-1]
-    if n <= UNROLL_LIMIT:
-        return jax.vmap(linalg_small.solve_spd)(spd, rhs)
-    use_pallas = force_pallas or (
-        _on_tpu() and spd.shape[0] >= 64 and spd.dtype == jnp.float32
-    )
-    if not use_pallas:
-        # equilibrate here too: filter covariances reach ~1e12 condition in
-        # raw units (see cholesky_banked) — a raw f32 cho_factor NaNs exactly
-        # the single-instance/small-bank path the Pallas kernel doesn't take
-        var = jnp.diagonal(spd, axis1=-2, axis2=-1)
-        tiny = jnp.asarray(jnp.finfo(spd.dtype).tiny, spd.dtype)
-        d = jnp.sqrt(jnp.maximum(var, tiny))
-        corr = spd / (d[:, :, None] * d[:, None, :])
-        f = jax.scipy.linalg.cho_factor(corr, lower=True)
-        x = jax.scipy.linalg.cho_solve(f, rhs / d[:, :, None])
-        return x / d[:, :, None]
-    nb = spd.shape[0]
-    pad = (-nb) % LANE_TILE
-    if pad:
-        eye = jnp.broadcast_to(jnp.eye(n, dtype=spd.dtype), (pad, n, n))
-        spd = jnp.concatenate([spd, eye], axis=0)
-        rhs = jnp.concatenate([rhs, jnp.zeros((pad, *rhs.shape[1:]), rhs.dtype)], axis=0)
-    a_t = jnp.transpose(spd, (2, 1, 0))
-    b_t = jnp.transpose(rhs, (1, 2, 0))
-    x_t = _solve_spd_lanes(a_t, b_t, interpret=not _on_tpu())
-    return jnp.transpose(x_t, (2, 0, 1))[:nb]
-
-
-@jax.custom_batching.custom_vmap
-def solve_spd_fast(spd: jax.Array, rhs: jax.Array) -> jax.Array:
-    """A⁻¹B for one SPD system; bank-optimal under vmap (one fused Pallas
-    launch per bank on TPU). Falls back to the unrolled / LAPACK paths."""
-    return solve_spd_banked(spd[None], rhs[None])[0]
-
-
-@solve_spd_fast.def_vmap
-def _solve_spd_fast_vmap(axis_size, in_batched, spd, rhs):
-    del axis_size
-    spd_b, rhs_b = in_batched
-    if not spd_b and not rhs_b:
-        return solve_spd_banked(spd[None], rhs[None])[0], False
-    nb = spd.shape[0] if spd_b else rhs.shape[0]
-    if not spd_b:
-        spd = jnp.broadcast_to(spd[None], (nb, *spd.shape))
-    if not rhs_b:
-        rhs = jnp.broadcast_to(rhs[None], (nb, *rhs.shape))
-    return solve_spd_banked(spd, rhs), True
+@jax.jit
+def solve_spd_banked(spd: jax.Array, rhs: jax.Array) -> jax.Array:
+    """X = A⁻¹B for a batch of SPD systems, ``spd`` (N, n, n), ``rhs``
+    (N, n, k) → (N, n, k): unrolled for n ≤ ``UNROLL_LIMIT``, otherwise an
+    equilibrated ``cho_factor``/``cho_solve`` (filter covariances reach ~1e12
+    condition in raw units — a raw f32 ``cho_factor`` NaNs)."""
+    if spd.shape[-1] <= UNROLL_LIMIT:
+        return jax.vmap(solve_spd)(spd, rhs)
+    corr, d = _equilibrate(spd)
+    f = jax.scipy.linalg.cho_factor(corr, lower=True)
+    x = jax.scipy.linalg.cho_solve(f, rhs / d[:, :, None])
+    return x / d[:, :, None]

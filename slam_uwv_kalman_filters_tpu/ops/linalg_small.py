@@ -1,18 +1,16 @@
-"""Unrolled small-matrix linear algebra for TPU.
+"""Unrolled small-matrix linear algebra and the filter path's one matmul helper.
 
-XLA-TPU lowers ``cholesky``/``triangular_solve``/``lu`` on tiny matrices
-through loop-heavy generic paths that cost milliseconds even when batched
-(measured: a batched 3×3 ``cho_factor``+``cho_solve`` costs ~5 ms for 8192
-instances — ~40× the cost of the surrounding filter math). Every matrix on
-the measurement side of the UKF is tiny and of *static* size (1–6: the
-measurement dims of ``src/PoseUKF.hpp:79-89``; 6×6 for the Fossen inertia
-matrix), so we unroll Cholesky and the triangular substitutions completely
-into scalar FMAs, which XLA fuses into the surrounding elementwise graph on
-the VPU — no library calls, no loops, no layout changes.
+Every matrix on the measurement side of the UKF is tiny and of *static* size
+(1–6: the measurement dims of ``src/PoseUKF.hpp:79-89``; 6×6 for the Fossen
+inertia matrix), so Cholesky and the triangular substitutions are unrolled
+completely into scalar FMAs, which XLA fuses into the surrounding elementwise
+graph — no library calls, no loops, no layout changes.
 
 All functions assume SPD inputs (true for innovation covariances S = cov + R
 and for Fossen inertia matrices M = M_RB + M_A) and are shape-generic over
 any number of right-hand-side columns; they batch transparently under vmap.
+
+:func:`mm` is the one place that sets matmul precision for the filter path.
 """
 
 from __future__ import annotations
@@ -20,9 +18,23 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-__all__ = ["cholesky_unrolled", "solve_spd", "UNROLL_LIMIT"]
+__all__ = ["cholesky_unrolled", "mm", "solve_spd", "UNROLL_LIMIT"]
 
 UNROLL_LIMIT = 8  # beyond this, fall back to library kernels
+
+
+def mm(*operands: jax.Array) -> jax.Array:
+    """Left-to-right product of ``operands`` at ``Precision.HIGHEST``.
+
+    An f32 matmul at default precision may run in bf16 or TF32 on an
+    accelerator (a 10-bit mantissa, ~1e-3 relative). The covariance update
+    P − K·S·Kᵀ cancels ~1.0 against ~1.0 down to ~1e-4 posterior variances,
+    and that error flips variances negative (NaN at the next Cholesky), so
+    every matmul on the filter path goes through here."""
+    out = operands[0]
+    for x in operands[1:]:
+        out = jnp.matmul(out, x, precision=jax.lax.Precision.HIGHEST)
+    return out
 
 
 def _scalar_cholesky_factors(S: jax.Array):

@@ -1,6 +1,6 @@
-"""Manifold algebra for TPU-native unscented Kalman filtering.
+"""Manifold algebra for banked unscented Kalman filtering in JAX.
 
-This module is the TPU-native (JAX) equivalent of the MTK manifold layer used by
+This module is the JAX equivalent of the MTK manifold layer used by
 the reference C++ library (``mtk/types/SOn.hpp``, ``mtk/types/S2.hpp``,
 ``mtk/types/vect.hpp``, ``mtk/build_manifold.hpp``; consumed by the reference at
 ``/root/reference/src/PoseState.hpp:4-10`` and ``src/BottomUKF.hpp:7-10``).
@@ -27,7 +27,7 @@ Conventions (pinned by oracle tests in ``tests/test_manifolds.py``):
   (``src/PoseState.hpp:29-45``) so that ``MTK::subblock`` offsets carry over.
 
 Everything here is pure, jittable, vmappable and dtype-polymorphic (f64 for
-bit-accuracy oracles on CPU, f32 for TPU throughput).
+bit-accuracy oracles on CPU, f32 for accelerator throughput).
 """
 
 from __future__ import annotations
@@ -37,6 +37,8 @@ from typing import Any, Sequence
 
 import jax
 import jax.numpy as jnp
+
+from .linalg_small import mm
 
 __all__ = [
     "quat_identity",
@@ -249,7 +251,7 @@ def s2_tangent_basis(x: jax.Array) -> jax.Array:
 
 def s2_boxplus(x: jax.Array, delta: jax.Array, scale=1.0) -> jax.Array:
     """Sphere exponential map: x ⊞ δ = cos(|v|)·x + sin(|v|)·v/|v|, v = B(x)·δ·scale."""
-    v = s2_tangent_basis(x) @ (delta * scale)
+    v = mm(s2_tangent_basis(x), delta * scale)
     theta2 = jnp.dot(v, v)
     theta = jnp.sqrt(theta2)
     small = theta2 < 1e-24
@@ -281,7 +283,7 @@ def s2_boxminus(y: jax.Array, x: jax.Array) -> jax.Array:
     b = s2_tangent_basis(x)
     u = jnp.where(small, jnp.where(d > 0.0, jnp.zeros_like(x), b[:, 0]), u)
     v = theta * u
-    return b.T @ v
+    return mm(b.T, v)
 
 
 # ---------------------------------------------------------------------------

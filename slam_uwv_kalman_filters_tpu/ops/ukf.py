@@ -1,4 +1,4 @@
-"""Manifold unscented Kalman filter core — the TPU-native ``ukfom::ukf``.
+"""Manifold unscented Kalman filter core — the JAX ``ukfom::ukf``.
 
 The reference builds every filter on the header-only ``ukfom::ukf<State>``
 sigma-point engine (used via ``ukf->predict`` at ``/root/reference/src/PoseUKF.cpp:462-465``
@@ -6,7 +6,7 @@ and ``ukf->update`` at ``src/PoseUKF.cpp:479-481``). This module re-implements
 that engine as pure JAX functions over (mu-pytree, covariance) pairs so that it
 composes freely with ``jit``/``vmap``/``pjit``: a bank of 100k filters is just a
 ``vmap`` over the leading axis, and the hot covariance algebra (sigma-point
-deviations → outer products) lowers to batched matmuls on the TPU MXU.
+deviations → outer products) lowers to batched matmuls.
 
 ukfom conventions reproduced here (Hertzberg et al., "Integrating Generic
 Sensor Fusion Algorithms with Sound State Representations through Encapsulation
@@ -33,8 +33,8 @@ from typing import Any, Callable, NamedTuple, Optional
 import jax
 import jax.numpy as jnp
 
-from .kernels import sigma_deltas_fast, solve_spd_fast
-from .linalg_small import solve_spd
+from .kernels import sigma_deltas_fast, solve_spd_banked
+from .linalg_small import mm, solve_spd
 from .manifolds import ProductManifold
 
 __all__ = [
@@ -62,22 +62,12 @@ class UpdateInfo(NamedTuple):
     innovation: jax.Array  # (m,) measurement-space innovation ν
 
 
-# All covariance-path matmuls run at HIGHEST precision: TPU matmul default is
-# bf16 multiplies (~4e-3 relative), and the P − K·S·Kᵀ update cancels ~1.0
-# against ~1.0 to recover a ~1e-4 posterior variance — bf16 error there flips
-# variances negative (observed on a v5e; CPU f32 is fine). These matmuls are a
-# small fraction of the step's MXU work, so the cost of the f32 passes is
-# negligible next to a NaN'd filter.
-_PREC = jax.lax.Precision.HIGHEST
-
-
-def _mm(a: jax.Array, b: jax.Array) -> jax.Array:
-    return jnp.matmul(a, b, precision=_PREC)
+_mm = mm  # all covariance-path matmuls pin Precision.HIGHEST (linalg_small.mm)
 
 
 def _default_tol(dtype) -> float:
     """Manifold-mean convergence tolerance matched to the working precision:
-    1e-12 for f64 oracle paths, 1e-6 for f32 TPU throughput paths (an f32
+    1e-12 for f64 oracle paths, 1e-6 for f32 throughput paths (an f32
     iteration cannot contract below ~1e-7, so a tighter tol would spin the
     while_loop to max_iters)."""
     return 1e-12 if jnp.dtype(dtype).itemsize >= 8 else 1e-6
@@ -91,8 +81,8 @@ def sigma_point_deltas(cov: jax.Array, *, jitter: float = 0.0) -> jax.Array:
     """
     if jitter:
         cov = cov + jitter * jnp.eye(cov.shape[-1], dtype=cov.dtype)
-    # single fused kernel on TPU banks: equilibrated Cholesky + ±interleave
-    # (ops/kernels.py); composes cholesky_fast + stack on the fallback paths.
+    # one banked call under vmap: equilibrated Cholesky + ±interleave
+    # (ops/kernels.py)
     return sigma_deltas_fast(cov)
 
 
@@ -194,12 +184,11 @@ def update(
     C = 0.5 * _mm(deltas.T, dZ)  # (n, m) cross-covariance
 
     # one unrolled SPD solve shared by the gain and the Mahalanobis distance
-    # (TPU triangular-solve kernels are ruinously slow at these sizes — see
-    # ops/linalg_small.py)
+    # (ops/linalg_small.py)
     rhs = jnp.concatenate([C.T, innovation[:, None]], axis=1)  # (m, n+1)
     sol = solve_spd(S, rhs)
     K = sol[:, :-1].T  # K = C S⁻¹
-    m2 = innovation @ sol[:, -1]
+    m2 = _mm(innovation, sol[:, -1])
 
     accepted = (
         jnp.asarray(True)
@@ -242,7 +231,7 @@ def smooth_step(
         μˢₖ = μᵏ ⊞ G·(μˢₖ₊₁ ⊟ μ⁻)
         Pˢₖ = Pᵏ + G·(Pˢₖ₊₁ − P⁻)·Gᵀ
 
-    The reference library has no smoother — this is the TPU-native offline
+    The reference library has no smoother — this is the offline
     reprocessing layer (survey post-processing) built on the same predict
     machinery; it reduces to the classical RTS smoother on linear-Gaussian
     problems (pinned by ``tests/test_smoother.py``). Runs under ``vmap``
@@ -258,9 +247,9 @@ def smooth_step(
     cov_pred = _symmetrize(0.5 * _mm(D.T, D) + process_noise).astype(cov_f.dtype)
     C = 0.5 * _mm(deltas.T, D)  # (n, n) cross-covariance cov(x_k, x_pred)
 
-    # G = C·P⁻⁻¹ via an SPD solve (P⁻ Gᵀ = Cᵀ); the banked Pallas solver
-    # routes a vmapped backward pass into one fused launch per bank on TPU
-    G = solve_spd_fast(cov_pred, C.T).T
+    # G = C·P⁻⁻¹ via an SPD solve (P⁻ Gᵀ = Cᵀ), equilibrated and banked
+    # under vmap (ops/kernels.solve_spd_banked)
+    G = solve_spd_banked(cov_pred[None], C.T[None])[0].T
     mu_s = manifold.boxplus(mu_f, _mm(G, manifold.boxminus(mu_s_next, mu_pred)))
     cov_s = _symmetrize(cov_f + _mm(_mm(G, cov_s_next - cov_pred), G.T))
     return mu_s, cov_s

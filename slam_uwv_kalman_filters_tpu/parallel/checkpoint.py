@@ -2,14 +2,15 @@
 
 The reference's only "resume" is its second constructor from an explicit
 state+covariance (``/root/reference/src/PoseUKF.cpp:374-391``). Here the whole
-filter-bank state is a pytree, so checkpointing is a byte-serialization of the
-tree (flax msgpack — dependency-free and host-portable) and resume is exactly
-the reference's construct-from-state path (``models.pose_ukf.init_from_state``).
+filter-bank state is a pytree, so a checkpoint is the tree's flattened leaves
+in one NumPy ``.npz`` file (``leaf_0`` … ``leaf_{n-1}`` in
+``jax.tree_util`` flatten order — host-portable, needs nothing beyond NumPy),
+and resume is exactly the reference's construct-from-state path
+(``models.pose_ukf.init_from_state``). The tree structure comes from the
+restore template, so only the leaves are stored.
 
-For multi-host pod jobs each process saves its addressable shard
-(``save_sharded``); restore re-places shards onto the local mesh. Orbax is
-used when available for async/atomic semantics, with the msgpack path as the
-always-available fallback.
+For multi-process jobs each process saves its addressable shard
+(``save_sharded``); restore re-places shards onto the local mesh.
 """
 
 from __future__ import annotations
@@ -20,52 +21,36 @@ from typing import Any
 
 import jax
 import numpy as np
-from flax import serialization
 
 __all__ = ["save", "restore", "save_sharded", "restore_sharded"]
 
 
-def save(path: str | os.PathLike, tree: Any, *, backend: str = "msgpack") -> None:
-    """Serialize a pytree (filter state, params, or both).
-
-    ``backend="msgpack"`` (default) writes ONE file, atomically published —
-    dependency-free and host-portable. ``backend="orbax"`` writes an Orbax
-    StandardCheckpointer directory (TensorStore chunked storage — the pick
-    for very large banks or cloud-storage paths)."""
+def save(path: str | os.PathLike, tree: Any) -> None:
+    """Serialize a pytree (filter state, params, or both) to ONE ``.npz``
+    file, atomically published (written beside ``path``, then renamed)."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    if backend == "orbax":
-        import orbax.checkpoint as ocp
-
-        host_tree = jax.tree_util.tree_map(np.asarray, tree)
-        ckptr = ocp.StandardCheckpointer()  # async: returns before finalize
-        ckptr.save(path.resolve(), host_tree, force=True)
-        ckptr.wait_until_finished()  # atomic publish (tmp dir → path)
-        return
-    if backend != "msgpack":
-        raise ValueError(f"unknown checkpoint backend {backend!r}")
-    host_tree = jax.tree_util.tree_map(np.asarray, tree)
-    tmp = path.with_suffix(path.suffix + ".tmp")
-    tmp.write_bytes(serialization.to_bytes(host_tree))
-    os.replace(tmp, path)  # atomic publish
+    leaves = jax.tree_util.tree_leaves(tree)
+    tmp = path.with_name(path.name + ".tmp")
+    with open(tmp, "wb") as f:
+        np.savez(f, **{f"leaf_{i}": np.asarray(x) for i, x in enumerate(leaves)})
+    os.replace(tmp, path)
 
 
 def restore(path: str | os.PathLike, target: Any) -> Any:
-    """Restore into the structure of ``target`` (a template pytree with the
-    right shapes/dtypes — e.g. a freshly-initialized filter state). The
-    backend is auto-detected: an Orbax checkpoint is a directory, the
-    msgpack checkpoint a single file."""
-    path = Path(path)
-    if path.is_dir():
-        import orbax.checkpoint as ocp
-
-        host_target = jax.tree_util.tree_map(np.asarray, target)
-        restored = ocp.StandardCheckpointer().restore(path.resolve(), host_target)
-        # match the msgpack path's contract: plain host arrays in the
-        # target's pytree structure (callers device-put as needed)
-        return jax.tree_util.tree_map(np.asarray, restored)
-    data = path.read_bytes()
-    return serialization.from_bytes(target, data)
+    """Restore into the structure of ``target`` (a template pytree — e.g. a
+    freshly-initialized filter state). Returns host NumPy arrays with the
+    saved shapes and dtypes; callers device-put as needed. A file whose leaf
+    count differs from the template's raises ``ValueError``."""
+    leaves, treedef = jax.tree_util.tree_flatten(target)
+    with np.load(Path(path), allow_pickle=False) as data:
+        if len(data.files) != len(leaves):
+            raise ValueError(
+                f"checkpoint {path} holds {len(data.files)} leaves; the "
+                f"template has {len(leaves)}"
+            )
+        restored = [data[f"leaf_{i}"] for i in range(len(leaves))]
+    return jax.tree_util.tree_unflatten(treedef, restored)
 
 
 def _shard_path(path: Path, process_index: int) -> Path:
@@ -96,7 +81,7 @@ def save_sharded(path: str | os.PathLike, tree: Any) -> None:
 
 
 def restore_sharded(path: str | os.PathLike, target: Any, *, place: bool = False) -> Any:
-    """Restore this process's shard (single-host: shard 0).
+    """Restore this process's shard (single process: shard 0).
 
     ``target`` is a template with this process's layout — e.g. the freshly
     initialized, already-sharded bank. Restored leaf shapes are validated
@@ -104,7 +89,7 @@ def restore_sharded(path: str | os.PathLike, target: Any, *, place: bool = False
     a template of the wrong bank size fails loudly instead of silently
     carrying mismatched shards. With ``place=True`` each leaf is re-assembled
     onto the template's sharding (``jax.make_array_from_process_local_data``)
-    — the multi-host resume path; the default returns host numpy arrays."""
+    — the multi-process resume path; the default returns host numpy arrays."""
     host_target = jax.tree_util.tree_map(_local_host_view, target)
     restored = restore(_shard_path(Path(path), jax.process_index()), host_target)
 

@@ -1,19 +1,18 @@
-"""Multi-host sharding of filter banks over TPU meshes.
+"""Sharding of filter banks over a device mesh.
 
 SURVEY.md §2.4: the bank axis is embarrassingly parallel, so the natural
-mapping is a 1-D ``bank`` mesh axis spanning the pod slice — per-instance
-steps run with zero communication, and XLA inserts collectives (psum over ICI
-within a slice, DCN across slices) only at the ensemble-statistics reduction
-points exposed here. This is the TPU-native replacement for the comm backend
-the reference never had (it ran one filter per process).
+mapping is a 1-D ``bank`` mesh axis over every device — per-instance steps
+run with zero communication, and XLA inserts collectives only at the
+ensemble-statistics reduction points exposed here. This replaces the comm
+backend the reference never had (it ran one filter per process).
 
 Design notes (jax-ml.github.io/scaling-book recipe): pick a mesh, annotate
 shardings on the inputs, let XLA propagate and insert collectives, profile.
 There is no model/tensor axis worth sharding for 53-DOF filters — one
-instance's 107×53 sigma work is far below a chip's MXU granularity, so
-intra-filter parallelism stays *within* a chip (batched matmuls) and
-cross-chip scaling is pure DP over the bank. A second mesh axis would only
-add latency.
+instance's 107×53 sigma work is tiny, so intra-filter parallelism stays
+*within* a device (batched matmuls) and cross-device scaling is pure data
+parallelism over the bank. The mesh follows the algorithm, not the
+interconnect: a second axis would only add latency.
 """
 
 from __future__ import annotations
@@ -23,6 +22,8 @@ from typing import Any, Optional, Sequence
 import jax
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+from ..ops.linalg_small import mm
 
 __all__ = [
     "init_multihost",
@@ -45,64 +46,26 @@ def init_multihost(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> int:
-    """Join the multi-host process group — the TPU-native comm-backend
-    bootstrap (the NCCL/MPI-init analogue the reference never had, SURVEY.md
-    §2.4). On Cloud TPU pod slices all arguments are auto-detected from the
-    environment; on other clusters pass them explicitly. After this,
-    ``jax.devices()`` spans every chip in the slice, ``make_mesh()`` builds
-    the global 1-D bank mesh, and the per-host shard of a bank is addressed
-    with ``jax.process_index()``. Returns the process index. Idempotent."""
+    """Join a multi-process group (the NCCL/MPI-init analogue the reference
+    never had, SURVEY.md §2.4). Pass all three arguments for a multi-process
+    job: nothing in the environment tells JAX of a cluster, and a failed
+    bootstrap raises — silently continuing would leave each process computing
+    an independent full bank (all reporting process_index 0, so sharded
+    checkpoints on shared storage overwrite each other). With no arguments
+    this is a single-process run and no group is formed. After joining,
+    ``jax.devices()`` spans every process's devices and ``make_mesh()``
+    builds the global 1-D bank mesh. Returns the process index. Idempotent."""
     if getattr(jax.distributed, "is_initialized", lambda: False)():
         return jax.process_index()
-    explicit = (
-        coordinator_address is not None
-        or num_processes is not None
-        or process_id is not None
-    )
-    try:
-        jax.distributed.initialize(coordinator_address, num_processes, process_id)
-    except (ValueError, RuntimeError):
-        # a failed bootstrap on a REAL pod must fail LOUDLY: silently
-        # continuing leaves each host computing an independent full bank with
-        # locally-correct-looking results (all reporting process_index 0, so
-        # sharded checkpoints on shared storage overwrite each other)
-        if explicit or _env_is_multihost():
-            raise
-        # nothing requested and the environment shows a single worker — a
-        # 1-host "pod"; single-process jax needs no process group
-        import warnings
-
-        warnings.warn(
-            "jax.distributed.initialize failed and no multi-host environment "
-            "was detected; continuing single-process. Pass coordinator_address/"
-            "num_processes/process_id explicitly if this IS a multi-host job.",
-            RuntimeWarning,
-            stacklevel=2,
-        )
+    if coordinator_address is None and num_processes is None and process_id is None:
+        return jax.process_index()
+    jax.distributed.initialize(coordinator_address, num_processes, process_id)
     return jax.process_index()
-
-
-def _env_is_multihost() -> bool:
-    """Cloud TPU environment markers of a >1-worker slice (what jax's cluster
-    auto-detection keys on) — if any says multiple workers, a bootstrap
-    failure is a real error, never a benign single-host case."""
-    import os
-
-    hostnames = os.environ.get("TPU_WORKER_HOSTNAMES", "")
-    if len([h for h in hostnames.split(",") if h.strip()]) > 1:
-        return True
-    for var in ("MEGASCALE_NUM_SLICES", "NUM_TPU_SLICES"):
-        try:
-            if int(os.environ.get(var, "1")) > 1:
-                return True
-        except ValueError:
-            pass
-    return False
 
 
 def make_mesh(devices: Optional[Sequence[jax.Device]] = None, axis: str = BANK_AXIS) -> Mesh:
     """1-D device mesh over all (or given) devices; works identically for one
-    chip, one host, or a multi-host pod slice (jax.distributed process mesh)."""
+    device, one host, or several processes (jax.distributed process mesh)."""
     devices = list(devices) if devices is not None else jax.devices()
     return Mesh(np.asarray(devices), (axis,))
 
@@ -137,12 +100,11 @@ def with_bank_constraint(tree: Any, mesh: Mesh, axis: str = BANK_AXIS) -> Any:
 def bank_shard_map(fn, mesh: Mesh, axis: str = BANK_AXIS):
     """Run a bank→bank step function per-device on its local bank shard.
 
-    The Pallas fast paths (``models.pose_fused`` / ``pose_update_fused``) are
-    custom calls that GSPMD cannot partition automatically — under plain
-    ``jit`` on a sharded bank XLA would gather the bank to one device first.
-    Wrapping the step in ``shard_map`` keeps every device running the fused
-    kernels on its local shard with zero communication (the bank axis is
-    embarrassingly parallel, SURVEY.md §2.4).
+    A hand-written kernel is a custom call that GSPMD cannot partition — under
+    plain ``jit`` on a sharded bank XLA would gather the bank to one device
+    first. Wrapping the step in ``shard_map`` keeps every device running on
+    its local shard with zero communication (the bank axis is embarrassingly
+    parallel, SURVEY.md §2.4).
 
     ``fn``'s inputs and outputs must all carry the bank as their leading
     axis (ensemble reductions belong outside the wrapped step)."""
@@ -174,8 +136,8 @@ def bank_shard_map(fn, mesh: Mesh, axis: str = BANK_AXIS):
 
 
 def ensemble_mean(tree: Any) -> Any:
-    """Mean over the bank axis — under jit on sharded inputs this lowers to a
-    psum over ICI (the one collective of the steady-state loop)."""
+    """Mean over the bank axis — under jit on sharded inputs this lowers to an
+    all-reduce across the mesh (the one collective of the steady-state loop)."""
     return jax.tree_util.tree_map(lambda a: a.mean(axis=0), tree)
 
 
@@ -183,7 +145,7 @@ def ensemble_moments(x: jax.Array) -> tuple[jax.Array, jax.Array]:
     """(mean, covariance) of a (N, d) bank statistic across instances."""
     mean = x.mean(axis=0)
     centered = x - mean[None]
-    cov = centered.T @ centered / x.shape[0]
+    cov = mm(centered.T, centered) / x.shape[0]
     return mean, cov
 
 

@@ -273,7 +273,9 @@ def save_config(cfg: PoseUKFConfig, path: str | Path) -> None:
         try:
             import yaml
         except ImportError as e:  # pragma: no cover
-            raise RuntimeError("PyYAML not available; use .json") from e
+            raise RuntimeError(
+                "YAML configs need PyYAML (the optional 'yaml' extra); use a .json path"
+            ) from e
         path.write_text(yaml.safe_dump(data))
     else:
         path.write_text(json.dumps(data, indent=2))
@@ -286,7 +288,9 @@ def load_config(path: str | Path) -> PoseUKFConfig:
         try:
             import yaml
         except ImportError as e:  # pragma: no cover
-            raise RuntimeError("PyYAML not available; use .json") from e
+            raise RuntimeError(
+                "YAML configs need PyYAML (the optional 'yaml' extra); use a .json path"
+            ) from e
         data = yaml.safe_load(text)
     else:
         data = json.loads(text)

@@ -11,7 +11,7 @@ inside jitted, vmapped filter loops.
 
 Timestamps are integer ticks whose width follows the runtime's x64 setting:
 int64 **microseconds** with x64 enabled (bit-parity with the reference's
-``fromSeconds``), int64-unavailable runtimes (the f32 TPU deployment path)
+``fromSeconds``), int64-unavailable runtimes (the f32 accelerator deployment path)
 use int32 **milliseconds** — still ~24 days before wraparound versus ~36
 minutes if microseconds were kept. All durations must flow through
 :func:`from_seconds`, which keeps callers unit-agnostic.

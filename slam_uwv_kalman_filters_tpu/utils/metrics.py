@@ -47,7 +47,7 @@ def covariance_condition(cov: jax.Array) -> jax.Array:
     eigenvalue and read as well-conditioned. A collapsed covariance (some
     |eigenvalue| exactly 0) reports ``inf``, not NaN: the guard divisor must
     be representable in the working dtype (a 1e-300 literal underflows to
-    0.0 in float32, turning the flagged case into 0/0 on the TPU f32 path)."""
+    0.0 in float32, turning the flagged case into 0/0 on the f32 deployment path)."""
     w = jnp.abs(jnp.linalg.eigvalsh(cov))
     num = jnp.max(w, axis=-1)
     den = jnp.min(w, axis=-1)

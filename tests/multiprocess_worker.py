@@ -4,8 +4,8 @@ Each worker is one "host" of a 2-process jax.distributed job: it owns 4
 virtual CPU devices, joins the process group via
 ``parallel.sharding.init_multihost``, and runs the full sharded PoseUKF bank
 step from ``__graft_entry__`` on the 8-device global mesh. The ensemble
-reduction then crosses the process boundary — the DCN path of a real pod
-(SURVEY.md §2.4) — which single-process virtual-device tests can never
+reduction then crosses the process boundary — the inter-host path of a real
+cluster (SURVEY.md §2.4) — which single-process virtual-device tests can never
 exercise. Launched as::
 
     python tests/multiprocess_worker.py <pid> <nproc> <coordinator>
@@ -21,8 +21,10 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_compilation_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+
+from slam_uwv_kalman_filters_tpu.utils.platform import enable_compile_cache  # noqa: E402
+
+enable_compile_cache(writes=False)
 
 
 def main(pid: int, nproc: int, coordinator: str) -> None:

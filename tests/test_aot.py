@@ -72,3 +72,24 @@ def test_exported_file_round_trip(tmp_path):
     ref = jax.jit(predict)(state)
     out = call(state)
     np.testing.assert_array_equal(np.asarray(out.cov), np.asarray(ref.cov))
+
+
+def test_exported_bank_step_round_trip():
+    """A bank-level predict + gated update (the online host's step, with
+    UpdateInfo results) survives the bytes boundary with equal outputs."""
+    from slam_uwv_kalman_filters_tpu.parallel import bank as bankmod
+
+    dtype = jnp.float32
+    state, params = _filter(dtype)
+    bs = bankmod.replicate(state, 4)
+    z = jnp.zeros((4, 2), dtype)
+
+    def step(bs, z):
+        bs = pukf.predict_bank(bs, params, 0.01)
+        return pukf.update_xy_position_bank(bs, params, z, jnp.eye(2, dtype=dtype) * 0.1, 5.991)
+
+    call = aot.deserialize(aot.serialize(aot.export_step(step, bs, z)))
+    ref = jax.jit(step)(bs, z)
+    out = call(bs, z)
+    for a, b in zip(jax.tree_util.tree_leaves(out), jax.tree_util.tree_leaves(ref)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

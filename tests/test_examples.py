@@ -80,9 +80,8 @@ def test_fleet_monte_carlo_runs_at_low_rate():
     fleet_monte_carlo.main(["--bank", "8", "--seconds", "1", "--rate", "2", "--cpu"])
 
 
-def test_online_estimator_runs_off_tpu():
-    """Execute the online-ingest example end-to-end off-TPU (regression: the
-    lanes kernels were launched with interpret=False on CPU and crashed, and
+def test_online_estimator_runs_on_cpu():
+    """Execute the online-ingest example end-to-end on the CPU (regression:
     gyro ticks without an event integrated a zero rate instead of the
     forward-filled last value)."""
     sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "examples"))
@@ -94,14 +93,14 @@ def test_online_estimator_runs_off_tpu():
     assert rt > 0
 
 
-def test_online_estimator_fused_step_mode():
-    """--fused-step dispatches predict + the tick's sensor updates through
-    the single-launch step_lanes kernel; the loop must converge identically
-    (same math, one launch) off-TPU in interpret mode."""
+def test_online_estimator_aot_mode():
+    """--aot dispatches tick functions that crossed a serialized-artifact
+    boundary (utils/aot.py); the loop must converge exactly as the jitted
+    one does."""
     sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "examples"))
     import online_estimator
 
     rt = online_estimator.main(
-        ["--cpu", "--bank", "4", "--seconds", "2", "--rate", "5", "--fused-step"]
+        ["--cpu", "--bank", "4", "--seconds", "2", "--rate", "5", "--aot"]
     )
     assert rt > 0

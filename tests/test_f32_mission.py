@@ -1,4 +1,4 @@
-"""f32 — the dtype that actually runs on the chip — asserted end-to-end.
+"""f32 — the dtype that actually runs on the accelerator — asserted end-to-end.
 
 VERDICT r2: the ATE acceptance tests ran f64 only, so nothing bounded
 whole-mission drift at the deployment dtype. These tests close that loop on
@@ -6,14 +6,14 @@ CPU (same scenario family as ``test_examples.py``):
 
 * the 1-minute ICRA'18 mission replay at f32 through the generic scan path
   must hold the same 10 cm north-star bound as the f64 test;
-* a kernel-path mission: ``run_trajectory_bank(use_fused="interpret")`` runs
-  the exact production Pallas kernels (fused predict + in-kernel measurement
-  models) through the interpreter for a multi-second schedule and must agree
-  with the generic f32 bank path at trajectory level — per-step parity
-  (``test_pose_fused.py``) cannot bound accumulated divergence.
+* a kernel-path mission: ``run_trajectory_bank`` with the sigma-point deltas
+  taken by the GPU kernel (``ops/kernels.sigma_deltas_triton``, run here by
+  the Pallas interpreter) for a multi-second schedule must agree with the
+  plain XLA path at trajectory level — per-call parity
+  (``test_kernels.py``) cannot bound accumulated divergence.
 
-``bench.py`` carries the on-TPU half: its ``ate_m`` field replays the same
-mission at f32 on the real chip every round.
+``chip_smoke.py`` carries the on-GPU half: it replays the same 1-minute
+mission at f32 on the card.
 """
 
 import sys
@@ -47,12 +47,15 @@ def test_icra18_mission_ate_bound_f32():
     assert ate < 0.10, f"f32 ATE {ate:.3f} m exceeds the 10 cm acceptance bound"
 
 
-def test_kernel_path_mission_f32_interpret():
-    """Trajectory-level run of the EXACT production kernels: a 4 s
-    IMU+DVL+pressure mission through ``run_trajectory_bank`` with
-    ``use_fused="interpret"`` (fused Pallas predict + streamed in-kernel
-    measurement updates, executed by the Pallas interpreter) versus the
-    generic vmap bank path at the same f32 dtype."""
+def test_kernel_path_mission_f32_interpret(monkeypatch):
+    """Trajectory-level run of the GPU sigma-delta kernel: a 4 s
+    IMU+DVL+pressure mission through ``run_trajectory_bank`` with the
+    dispatch point forced to the Triton route (the kernel executed by the
+    Pallas interpreter) versus the plain XLA route, both at f32."""
+    from functools import partial
+
+    from slam_uwv_kalman_filters_tpu.ops import kernels
+
     T = 400
     dt = 0.01
     truth = simulate_truth(T, dt)
@@ -99,14 +102,25 @@ def test_kernel_path_mission_f32_interpret():
     bstate = bankmod.replicate(state, 1)
     binputs = jax.tree_util.tree_map(lambda a: a[:, None, ...], inputs)
 
-    run_kernel = jax.jit(
-        lambda s, p, i: drv.run_trajectory_bank(s, p, i, use_fused="interpret")
+    run = lambda s, p, i: drv.run_trajectory_bank(s, p, i)
+    _, outs_g = jax.jit(run)(bstate, params, binputs)
+
+    # the route is decided while tracing: force the GPU one, re-trace
+    monkeypatch.setattr(kernels, "sigma_delta_route", lambda n, dtype, platform=None: (
+        "unrolled" if n <= kernels.UNROLL_LIMIT else "triton"
+    ))
+    traced = []
+    kernel = partial(kernels.sigma_deltas_triton, interpret=True)
+    monkeypatch.setattr(
+        kernels, "sigma_deltas_triton", lambda cov: traced.append(cov.shape) or kernel(cov)
     )
-    run_generic = jax.jit(
-        lambda s, p, i: drv.run_trajectory_bank(s, p, i, use_fused=False)
-    )
-    _, outs_k = run_kernel(bstate, params, binputs)
-    _, outs_g = run_generic(bstate, params, binputs)
+    jax.clear_caches()
+    try:
+        _, outs_k = jax.jit(run)(bstate, params, binputs)
+    finally:
+        monkeypatch.undo()
+        jax.clear_caches()  # no kernel-route trace outlives this test
+    assert (1, 53, 53) in traced, traced
 
     est_k = np.asarray(outs_k.position)[:, 0]
     est_g = np.asarray(outs_g.position)[:, 0]
@@ -116,7 +130,7 @@ def test_kernel_path_mission_f32_interpret():
     assert np.all(np.isfinite(np.asarray(outs_k.cov_trace)))
     assert ate_k < 0.10, f"kernel-path f32 ATE {ate_k:.3f} m"
 
-    # accumulated kernel-vs-generic divergence stays at f32-roundoff scale
+    # accumulated kernel-vs-plain divergence stays at f32-roundoff scale
     # over the whole mission, not just per step
     path_div = float(np.abs(est_k - est_g).max())
-    assert path_div < 5e-3, f"kernel path diverged {path_div:.2e} m from generic f32"
+    assert path_div < 5e-3, f"kernel path diverged {path_div:.2e} m from plain f32"

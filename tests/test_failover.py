@@ -102,8 +102,8 @@ def test_self_healing_step_with_checkpoint_snapshot(tmp_path):
     n = 3
     bstate = bank.replicate(state, n)
 
-    checkpoint.save(tmp_path / "bank.msgpack", bstate)
-    snapshot = checkpoint.restore(tmp_path / "bank.msgpack", bstate)
+    checkpoint.save(tmp_path / "bank.npz", bstate)
+    snapshot = checkpoint.restore(tmp_path / "bank.npz", bstate)
 
     def step(bs, z):
         bs = pukf.predict_bank(bs, params, 0.01)

@@ -6,7 +6,7 @@ replays the 1-minute ICRA'18 mission as a bank of perturbed instances through
 ``models/monte_carlo.run_fleet_mission`` (per-instance on-device sensor
 noise, perturbed initial estimates, banked Monte-Carlo parameters) and
 asserts per-instance bounds, so a defect that hits a subset of instances
-(masked-gate edge, lanes padding, per-instance aux routing) fails loudly.
+(masked-gate edge, per-instance parameter routing) fails loudly.
 
 Bound calibration (measured on this harness, committed r4): the solo
 seed-0 replay's 0.027 m sits in the lucky tail of the sensor-noise
@@ -17,8 +17,7 @@ instances depending on initial scatter. The per-instance assertion is
 therefore distribution-calibrated (p50 < 0.16 m, max < 0.40 m with
 deterministic keys) rather than the solo 0.10 m north-star bound, which
 ``test_f32_mission.py`` continues to assert for the canonical seed-0 replay.
-``bench.py`` carries the on-TPU fleet distribution (ate_bank_* fields) at
-1024 instances every round.
+The same harness runs on the GPU through ``models/monte_carlo.py``.
 """
 
 import sys
@@ -52,7 +51,7 @@ def test_fleet_monte_carlo_ate_distribution():
     bparams = icra18_mission.monte_carlo_params(params, B, dtype)
     res = jax.jit(
         lambda bs: mc.run_fleet_mission(
-            bs, bparams, spec, jax.random.PRNGKey(42), path="bank"
+            bs, bparams, spec, jax.random.PRNGKey(42)
         )
     )(bstate)
     ate = np.asarray(jax.block_until_ready(res.ate))
@@ -69,40 +68,3 @@ def test_fleet_monte_carlo_ate_distribution():
     assert np.all(gacc == 1.0), f"gated surface fixes rejected: {gacc}"
     nis = np.asarray(res.dvl_nis_mean)
     assert 0.3 < nis.mean() < 2.0, f"DVL NIS mean {nis.mean():.2f} out of band"
-
-
-def test_fleet_mission_lanes_matches_bank_path():
-    """The harness's two tick routes — the lanes-persistent kernel loop (the
-    on-TPU artifact path, run here through the Pallas interpreter) and the
-    generic bank step — must produce the same per-instance statistics: the
-    artifact's ate_bank_* numbers are path-independent."""
-    B = 2
-    state, params, spec = icra18_mission.build_fleet_setup(
-        minutes=0.05, rate=20.0, dtype_name="f32"
-    )
-    bstate = bankmod.replicate(state, B)
-    bstate = mc.perturb_initial_bank(bstate, jax.random.PRNGKey(3))
-    key = jax.random.PRNGKey(9)
-    res_bank = mc.run_fleet_mission(bstate, params, spec, key, path="bank")
-    res_lanes = mc.run_fleet_mission(
-        bstate, params, spec, key, path="lanes", interpret=True
-    )
-    # f32 kernel-vs-generic divergence accumulates over the replay (per-step
-    # parity is ~1e-5; 60 ticks compound to ~2e-3 relative on the ATE)
-    np.testing.assert_allclose(
-        np.asarray(res_lanes.ate), np.asarray(res_bank.ate), rtol=1e-2, atol=1e-4
-    )
-    np.testing.assert_array_equal(
-        np.asarray(res_lanes.gps_accept_frac), np.asarray(res_bank.gps_accept_frac)
-    )
-    np.testing.assert_allclose(
-        np.asarray(res_lanes.dvl_nis_mean),
-        np.asarray(res_bank.dvl_nis_mean),
-        rtol=1e-2,
-        atol=1e-4,
-    )
-    np.testing.assert_allclose(
-        np.asarray(res_lanes.final_state.mu.position),
-        np.asarray(res_bank.final_state.mu.position),
-        atol=1e-3,
-    )

@@ -361,239 +361,3 @@ def test_pose_step_bank_full_surface_matches_vmap():
     np.testing.assert_allclose(
         np.asarray(tick_bank.marker_nis), np.asarray(tick_ref.marker_nis), rtol=1e-8
     )
-
-
-def test_run_trajectory_bank_lanes_matches_bank():
-    """The lanes-persistent fleet replay (run_trajectory_bank_lanes: whole
-    scan in kernel layout, every scheduled model in-kernel, marker ticks
-    round-tripping through bank layout) matches run_trajectory_bank on the
-    full 11-stream surface — same kernels, layout conversions dropped."""
-    rng = np.random.default_rng(29)
-    n, T = 2, 2
-    dtype = jnp.float32
-    state, params = pukf.init_from_pose(
-        imu_in_nwu_pos=jnp.zeros(3, dtype),
-        imu_in_nwu_pos_cov=jnp.eye(3, dtype=dtype) * 0.04,
-        imu_in_nwu_rot=jnp.array([1.0, 0, 0, 0], dtype),
-        imu_in_nwu_rot_cov=jnp.eye(3, dtype=dtype) * 1e-4,
-        config=CFG,
-        model_parameters=dyn.default_uwv_parameters(dtype=dtype),
-        imu_delta_t=0.05,
-        dtype=dtype,
-    )
-    bstate = bankmod.replicate(state, n)
-    bstate = bstate._replace(
-        mu=bstate.mu._replace(
-            position=jnp.asarray(rng.normal(scale=0.5, size=(n, 3)), dtype),
-            velocity=jnp.asarray(rng.normal(scale=0.2, size=(n, 3)), dtype),
-        )
-    )
-    proj = geo.make_projection(CFG.location.latitude, CFG.location.longitude)
-    lat, lon = geo.nav_to_world(
-        proj,
-        jnp.asarray(rng.normal(scale=1.0, size=(T, n)), dtype),
-        jnp.asarray(rng.normal(scale=1.0, size=(T, n)), dtype),
-    )
-    feats = jnp.asarray(
-        np.stack(
-            [
-                np.stack(
-                    [
-                        _project_marker(
-                            np.asarray(bstate.mu.position[i], np.float64),
-                            np.asarray(bstate.mu.orientation[i], np.float64),
-                            np.array([6.0, 0.0, 0.0]),
-                            np.array([0.5, -0.5, 0.5, -0.5]),
-                        )[0]
-                        for i in range(n)
-                    ]
-                )
-                for _ in range(T)
-            ]
-        ),
-        dtype,
-    )
-    consts = drv.PoseStepConstants(
-        gps_in_body=jnp.asarray([0.4, 0.0, -1.0], dtype),
-        marker=drv.MarkerSetup(
-            feature_positions=jnp.asarray(MARKER_CORNERS, dtype),
-            marker_position=jnp.asarray([6.0, 0.0, 0.0], dtype),
-            marker_orientation=jnp.asarray([0.5, -0.5, 0.5, -0.5], dtype),
-            cov_marker_pose=jnp.eye(6, dtype=dtype) * 1e-4,
-            camera=CAM,
-            camera_in_imu_position=jnp.asarray(CAM_P, dtype),
-            camera_in_imu_orientation=jnp.asarray(CAM_Q, dtype),
-        ),
-    )
-    # (T, n) schedule with varied validity so the masked selects matter:
-    # build a flat (T*n,) schedule, then fold the leading axis to (T, n)
-    flat = lambda a: np.reshape(np.asarray(a), (T * n, *np.shape(a)[2:]))
-    inputs = drv.make_inputs(
-        T * n,
-        0.05,
-        flat(rng.normal(scale=0.02, size=(T, n, 3))),
-        acc=flat(rng.normal(scale=0.05, size=(T, n, 3)) + np.array([0, 0, 9.81])),
-        acc_cov=jnp.eye(3, dtype=dtype) * 4e-5,
-        dvl=flat(rng.normal(scale=0.2, size=(T, n, 3))),
-        dvl_cov=jnp.eye(3, dtype=dtype) * 1e-3,
-        dvl_valid=flat(rng.random((T, n)) < 0.7),
-        pressure=np.full((T * n, 1), 101325.0),
-        pressure_cov=jnp.eye(1, dtype=dtype) * 2500.0,
-        pressure_valid=flat(rng.random((T, n)) < 0.5),
-        xy=flat(rng.normal(scale=0.3, size=(T, n, 2))),
-        xy_cov=jnp.eye(2, dtype=dtype) * 0.01,
-        xy_valid=flat(rng.random((T, n)) < 0.5),
-        adcp=flat(rng.normal(scale=0.05, size=(T, n, 2))),
-        adcp_cov=jnp.eye(2, dtype=dtype) * 1e-3,
-        adcp_cell_weighting=flat(rng.random((T, n))),
-        adcp_valid=flat(rng.random((T, n)) < 0.5),
-        efforts=flat(rng.normal(scale=0.5, size=(T, n, 6))),
-        efforts_cov=jnp.eye(6, dtype=dtype) * 1.0,
-        efforts_valid=flat(rng.random((T, n)) < 0.6),
-        z=flat(rng.normal(scale=0.1, size=(T, n, 1))),
-        z_cov=jnp.eye(1, dtype=dtype) * 1e-3,
-        z_valid=flat(rng.random((T, n)) < 0.5),
-        gps=flat(np.stack([np.asarray(lat), np.asarray(lon)], -1)),
-        gps_cov=jnp.eye(2, dtype=dtype) * 0.04,
-        gps_valid=flat(np.array([[True, False], [False, True]])),
-        delayed_xy=flat(rng.normal(scale=0.2, size=(T, n, 2))),
-        delayed_xy_cov=jnp.eye(2, dtype=dtype) * 0.01,
-        delayed_position=flat(rng.normal(scale=0.2, size=(T, n, 2))),
-        delayed_valid=flat(np.array([[False, True], [True, False]])),
-        marker_features=flat(feats),
-        marker_feature_covs=np.tile(np.eye(2) * 2.0, (T * n, 4, 1, 1)),
-        marker_valid=flat(np.array([[True, False], [False, True]])),
-        dtype=dtype,
-    )
-    inputs = jax.tree_util.tree_map(
-        lambda x: x.reshape(T, n, *x.shape[1:]), inputs
-    )
-
-    ref_state, ref_out = drv.run_trajectory_bank(
-        bstate, params, inputs, consts, use_fused="interpret"
-    )
-    out_state, out = drv.run_trajectory_bank_lanes(
-        bstate, params, inputs, consts, interpret=True
-    )
-
-    np.testing.assert_allclose(
-        np.asarray(out_state.cov), np.asarray(ref_state.cov), rtol=2e-4, atol=2e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(out_state.mu.position), np.asarray(ref_state.mu.position), atol=1e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(out_state.mu.orientation),
-        np.asarray(ref_state.mu.orientation),
-        atol=1e-6,
-    )
-    np.testing.assert_allclose(
-        np.asarray(out.position), np.asarray(ref_out.position), atol=1e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(out.cov_trace), np.asarray(ref_out.cov_trace), rtol=1e-4
-    )
-    np.testing.assert_allclose(
-        np.asarray(out.dvl_nis), np.asarray(ref_out.dvl_nis), rtol=1e-3, atol=1e-4
-    )
-    np.testing.assert_array_equal(
-        np.asarray(out.gps_accepted), np.asarray(ref_out.gps_accepted)
-    )
-    np.testing.assert_allclose(
-        np.asarray(out.marker_nis), np.asarray(ref_out.marker_nis), rtol=1e-3, atol=1e-4
-    )
-
-
-def test_run_trajectory_bank_lanes_banked_params():
-    """Monte-Carlo parameter sweeps through the lanes-persistent fleet replay
-    (VERDICT r3 item 2): a fully-banked parameter set — per-instance process
-    noise, water-velocity scale, atmospheric pressure, dynamic model and
-    geography anchors — replayed by ``run_trajectory_bank_lanes`` (fully-
-    banked predict kernel mode + banked-aux measurement lanes) must match
-    ``run_trajectory_bank``'s generic per-instance path."""
-    rng = np.random.default_rng(31)
-    n, T = 3, 4
-    dtype = jnp.float64
-    state, params = pukf.init_from_pose(
-        imu_in_nwu_pos=jnp.zeros(3, dtype),
-        imu_in_nwu_pos_cov=jnp.eye(3, dtype=dtype) * 0.04,
-        imu_in_nwu_rot=jnp.array([1.0, 0, 0, 0], dtype),
-        imu_in_nwu_rot_cov=jnp.eye(3, dtype=dtype) * 1e-4,
-        config=CFG,
-        model_parameters=dyn.default_uwv_parameters(dtype=dtype),
-        imu_delta_t=0.05,
-        dtype=dtype,
-    )
-    bstate = bankmod.replicate(state, n)
-    bstate = bstate._replace(
-        mu=bstate.mu._replace(
-            position=jnp.asarray(rng.normal(scale=0.5, size=(n, 3)), dtype),
-            velocity=jnp.asarray(rng.normal(scale=0.2, size=(n, 3)), dtype),
-        )
-    )
-    # fully-banked Monte-Carlo parameter draw: every leaf gets a bank axis,
-    # and the sweep perturbs noise scales, hydrostatics and the rigid-body
-    # model per instance
-    scales = jnp.asarray(1.0 + 0.2 * rng.standard_normal(n).clip(-0.8, 0.8), dtype)
-    bparams = jax.tree_util.tree_map(
-        lambda x: jnp.broadcast_to(x, (n, *jnp.shape(x))), params
-    )
-    bparams = bparams._replace(
-        process_noise=bparams.process_noise * scales[:, None, None],
-        water_velocity_scale=bparams.water_velocity_scale * scales,
-        atmospheric_pressure=bparams.atmospheric_pressure
-        + jnp.asarray(rng.normal(scale=100.0, size=n), dtype),
-        model=bparams.model._replace(
-            inertia_matrix=bparams.model.inertia_matrix * scales[:, None, None]
-        ),
-    )
-
-    flat = lambda a: np.reshape(np.asarray(a), (T * n, *np.shape(a)[2:]))
-    inputs = drv.make_inputs(
-        T * n,
-        0.05,
-        flat(rng.normal(scale=0.02, size=(T, n, 3))),
-        acc=flat(rng.normal(scale=0.05, size=(T, n, 3)) + np.array([0, 0, 9.81])),
-        acc_cov=jnp.eye(3, dtype=dtype) * 4e-5,
-        dvl=flat(rng.normal(scale=0.2, size=(T, n, 3))),
-        dvl_cov=jnp.eye(3, dtype=dtype) * 1e-3,
-        dvl_valid=flat(rng.random((T, n)) < 0.7),
-        pressure=np.full((T * n, 1), 101325.0),
-        pressure_cov=jnp.eye(1, dtype=dtype) * 2500.0,
-        pressure_valid=flat(rng.random((T, n)) < 0.5),
-        xy=flat(rng.normal(scale=0.3, size=(T, n, 2))),
-        xy_cov=jnp.eye(2, dtype=dtype) * 0.01,
-        xy_valid=flat(rng.random((T, n)) < 0.5),
-        adcp=flat(rng.normal(scale=0.05, size=(T, n, 2))),
-        adcp_cov=jnp.eye(2, dtype=dtype) * 1e-3,
-        adcp_cell_weighting=flat(rng.random((T, n))),
-        adcp_valid=flat(rng.random((T, n)) < 0.5),
-        efforts=flat(rng.normal(scale=0.5, size=(T, n, 6))),
-        efforts_cov=jnp.eye(6, dtype=dtype) * 1.0,
-        efforts_valid=flat(rng.random((T, n)) < 0.6),
-        dtype=dtype,
-    )
-    inputs = jax.tree_util.tree_map(lambda x: x.reshape(T, n, *x.shape[1:]), inputs)
-
-    ref_state, ref_out = drv.run_trajectory_bank(
-        bstate, bparams, inputs, use_fused=False
-    )
-    out_state, out = drv.run_trajectory_bank_lanes(
-        bstate, bparams, inputs, interpret=True
-    )
-
-    np.testing.assert_allclose(
-        np.asarray(out_state.cov), np.asarray(ref_state.cov), rtol=1e-9, atol=1e-11
-    )
-    np.testing.assert_allclose(
-        np.asarray(out_state.mu.position), np.asarray(ref_state.mu.position), atol=1e-10
-    )
-    np.testing.assert_allclose(
-        np.asarray(out.position), np.asarray(ref_out.position), atol=1e-10
-    )
-    np.testing.assert_allclose(
-        np.asarray(out.dvl_nis), np.asarray(ref_out.dvl_nis), rtol=1e-8, atol=1e-10
-    )
-    np.testing.assert_array_equal(
-        np.asarray(out.adcp_accepted), np.asarray(ref_out.adcp_accepted)
-    )

@@ -1,9 +1,13 @@
-"""Pallas kernel tests — run in interpret mode on CPU (same code path that
-compiles on TPU) and verified against LAPACK."""
+"""Banked factorizations (``ops/kernels.py``): the plain XLA path against
+LAPACK / f64 NumPy, the GPU sigma-delta kernel in Pallas interpret mode
+against f64 NumPy, and the one dispatch point that chooses between them."""
+
+from functools import partial
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from slam_uwv_kalman_filters_tpu.ops import kernels
 
@@ -22,9 +26,41 @@ def random_spd_batch(nb, n, cond_spread=True):
     return jnp.asarray(out)
 
 
+def raw_unit_covs(nb, n, seed):
+    """Correlated covariances with variances spread over 1e-11..1e1 — the
+    raw-unit range of the 53-DOF PoseUKF state (damping parameters to
+    velocity), condition ~1e12."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros((nb, n, n))
+    for i in range(nb):
+        w = rng.normal(size=(n, n))
+        corr = 0.7 * np.eye(n) + 0.3 * (w @ w.T) / n
+        s = 1.0 / np.sqrt(np.diag(corr))
+        corr = corr * s[:, None] * s[None, :]
+        d = np.sqrt(10.0 ** rng.uniform(-11, 1, n))
+        out[i] = d[:, None] * corr * d[None, :]
+    return out
+
+
+def f64_deltas(covs):
+    """Independent NumPy f64 ukfom deltas: 0, then ±columns of chol(P)."""
+    covs = np.asarray(covs, np.float64)
+    nb, n = covs.shape[0], covs.shape[-1]
+    out = np.zeros((nb, 2 * n + 1, n))
+    for b in range(nb):
+        L = np.linalg.cholesky(covs[b])
+        out[b, 1::2] = L.T
+        out[b, 2::2] = -L.T
+    return out
+
+
+def triton_interpret(cov, **kw):
+    return np.asarray(kernels.sigma_deltas_triton(jnp.asarray(cov, jnp.float32), interpret=True, **kw))
+
+
 def test_cholesky_banked_matches_lapack_53():
     covs = random_spd_batch(8, 53)
-    out = kernels.cholesky_banked(covs, force_pallas=True)  # interpret mode on CPU
+    out = kernels.cholesky_banked(covs)
     ref = np.linalg.cholesky(np.asarray(covs))
     np.testing.assert_allclose(np.asarray(out), ref, rtol=1e-10, atol=1e-10)
     # strictly lower triangular zeros
@@ -32,10 +68,17 @@ def test_cholesky_banked_matches_lapack_53():
 
 
 def test_cholesky_banked_pads_nonmultiple_batch():
-    covs = random_spd_batch(5, 53)  # not a lane multiple
-    out = kernels.cholesky_banked(covs, force_pallas=True)
+    """A bank that is not a multiple of the kernel's instances-per-program:
+    the last program's missing instances are masked, never written."""
+    covs = random_spd_batch(5, 53)
+    out = kernels.cholesky_banked(covs)
     assert out.shape == (5, 53, 53)
     np.testing.assert_allclose(np.asarray(out), np.linalg.cholesky(np.asarray(covs)), atol=1e-10)
+    got = triton_interpret(raw_unit_covs(5, 53, seed=1), group=4)
+    ref = f64_deltas(raw_unit_covs(5, 53, seed=1))
+    assert got.shape == (5, 107, 53)
+    scale = np.sqrt(np.diagonal(raw_unit_covs(5, 53, seed=1), axis1=1, axis2=2))[:, None, :]
+    np.testing.assert_array_less(np.abs(got - ref) / scale, 1e-4)
 
 
 def test_cholesky_banked_small_sizes_unrolled():
@@ -47,17 +90,26 @@ def test_cholesky_banked_small_sizes_unrolled():
         )
 
 
-def test_cholesky_fast_vmap_routes_to_banked():
-    covs = random_spd_batch(4, 53)
-    out = jax.jit(jax.vmap(kernels.cholesky_fast))(covs)
-    np.testing.assert_allclose(np.asarray(out), np.linalg.cholesky(np.asarray(covs)), atol=1e-10)
-    # single (unbatched) call works too
-    one = kernels.cholesky_fast(covs[0])
-    np.testing.assert_allclose(np.asarray(one), np.linalg.cholesky(np.asarray(covs[0])), atol=1e-10)
+def test_sigma_deltas_fast_vmap_routes_to_banked(monkeypatch):
+    """The custom_vmap rule hands the whole vmapped bank to one
+    ``sigma_deltas_banked`` call; nested vmaps and an unbatched call give
+    the same deltas."""
+    covs = random_spd_batch(6, 12)
+    calls = []
+    banked = kernels.sigma_deltas_banked
+    monkeypatch.setattr(kernels, "sigma_deltas_banked", lambda c: calls.append(c.shape) or banked(c))
+    out = jax.vmap(kernels.sigma_deltas_fast)(covs)
+    assert (6, 12, 12) in calls and all(c[0] == 6 for c in calls if len(c) == 3)
+    ref = f64_deltas(covs)
+    np.testing.assert_allclose(np.asarray(out), ref, atol=1e-10)
+    nested = jax.vmap(jax.vmap(kernels.sigma_deltas_fast))(covs.reshape(2, 3, 12, 12))
+    np.testing.assert_allclose(np.asarray(nested).reshape(6, 25, 12), ref, atol=1e-10)
+    one = kernels.sigma_deltas_fast(covs[0])
+    np.testing.assert_allclose(np.asarray(one), ref[0], atol=1e-10)
 
 
 def test_ukf_predict_unchanged_by_kernel_path():
-    """Filter results are bit-comparable with the kernel-backed cholesky."""
+    """Filter results are exact with the banked sigma deltas."""
     from typing import NamedTuple
 
     from slam_uwv_kalman_filters_tpu.ops import manifolds as mf
@@ -76,9 +128,9 @@ def test_ukf_predict_unchanged_by_kernel_path():
 
 
 def test_sigma_deltas_banked_matches_composition():
-    """The fused Pallas path (interpret mode) must equal chol + ±interleave."""
+    """The dispatched path must equal chol + ±interleave."""
     covs = random_spd_batch(6, 53)
-    fused = kernels.sigma_deltas_banked(covs, force_pallas=True)
+    fused = kernels.sigma_deltas_banked(covs)
     L = np.linalg.cholesky(np.asarray(covs))
     assert fused.shape == (6, 107, 53)
     np.testing.assert_allclose(np.asarray(fused)[:, 0], 0.0, atol=0)
@@ -92,28 +144,22 @@ def test_sigma_deltas_banked_matches_composition():
 
 
 def test_solve_spd_banked_matches_numpy():
-    """Fused Pallas Cholesky + triangular solves (interpret mode) vs LAPACK,
-    including ill-conditioned inputs and a non-lane-multiple bank."""
+    """Equilibrated cho_factor/cho_solve vs LAPACK, including
+    ill-conditioned inputs, and under vmap."""
     for nb in (5, 8):
         spd = random_spd_batch(nb, 53)
         rhs = jnp.asarray(RNG.normal(size=(nb, 53, 7)))
-        out = kernels.solve_spd_banked(spd, rhs, force_pallas=True)
+        out = kernels.solve_spd_banked(spd, rhs)
         ref = np.linalg.solve(np.asarray(spd), np.asarray(rhs))
         np.testing.assert_allclose(np.asarray(out), ref, rtol=1e-8, atol=1e-8)
-    # vmap routing
-    out2 = jax.jit(jax.vmap(kernels.solve_spd_fast))(spd, rhs)
+    out2 = jax.jit(jax.vmap(lambda a, b: kernels.solve_spd_banked(a[None], b[None])[0]))(spd, rhs)
     np.testing.assert_allclose(np.asarray(out2), ref, rtol=1e-6, atol=1e-7)
 
 
-def test_banked_ops_skip_pallas_for_f64(monkeypatch):
-    """f64 banks on a TPU-default host must take the library path — Mosaic
-    cannot lower f64 (regression: the use_pallas gates checked backend and
-    bank size but never dtype, so an x64 oracle run on TPU hardware crashed
-    in lowering). Simulated by forcing _on_tpu() True on CPU: with the dtype
-    gate the Pallas branch is never entered."""
-    from slam_uwv_kalman_filters_tpu.ops import kernels
-
-    monkeypatch.setattr(kernels, "_on_tpu", lambda: True)
+def test_banked_ops_skip_pallas_for_f64():
+    """f64 banks take the XLA path on every platform — the kernel is f32
+    only — and the f64 results are exact."""
+    assert kernels.sigma_delta_route(12, jnp.float64, "gpu") == "xla"
     rng = np.random.default_rng(7)
     a = rng.normal(size=(130, 12, 12))
     spd = jnp.asarray(a @ np.transpose(a, (0, 2, 1)) + 10 * np.eye(12))
@@ -128,3 +174,115 @@ def test_banked_ops_skip_pallas_for_f64(monkeypatch):
     rhs = jnp.asarray(rng.normal(size=(130, 12, 2)))
     x = kernels.solve_spd_banked(spd, rhs)
     np.testing.assert_allclose(np.asarray(spd @ x), np.asarray(rhs), atol=1e-8)
+
+
+# --- the GPU kernel, in Pallas interpret mode -------------------------------
+
+
+@pytest.mark.parametrize(
+    "n,nb,group",
+    [(53, 1, 1), (53, 5, 2), (53, 7, 4), (59, 3, 1), (59, 5, 2), (9, 3, 1), (64, 2, 1)],
+)
+def test_triton_kernel_matches_f64_numpy(n, nb, group):
+    """The kernel's deltas equal the f64 NumPy deltas to f32 accuracy, for
+    the PoseUKF (53) and its marker augmentation (59), the smallest and
+    largest sizes it takes, and banks that do not fill the last program."""
+    covs = raw_unit_covs(nb, n, seed=n + nb)
+    got = triton_interpret(covs, group=group)
+    assert got.shape == (nb, 2 * n + 1, n)
+    ref = f64_deltas(covs)
+    scale = np.sqrt(np.diagonal(covs, axis1=1, axis2=2))[:, None, :]
+    np.testing.assert_array_less(np.abs(got - ref) / scale, 1e-4)
+    np.testing.assert_array_equal(got[:, 0], 0.0)
+
+
+@pytest.mark.parametrize("n", [53, 59])
+def test_triton_kernel_ill_conditioned_raw_units(n):
+    """Raw-unit covariances (variances 1e-11..1e1, condition ~1e12):
+    L·Lᵀ from the kernel's deltas reproduces the correlation matrix to
+    1e-5, and the deltas are within 1e-4 of the f64 deltas, both relative
+    to √(Pᵢᵢ·Pⱼⱼ) / √Pᵢᵢ — the f32 bounds chip_smoke.py holds the card to."""
+    covs = raw_unit_covs(4, n, seed=100 + n)
+    got = triton_interpret(covs).astype(np.float64)
+    d = np.sqrt(np.diagonal(covs, axis1=1, axis2=2))
+    lc = got[:, 1::2, :] / d[:, None, :]  # rows: equilibrated factor columns
+    corr = covs / (d[:, :, None] * d[:, None, :])
+    recon = np.einsum("bji,bjk->bik", lc, lc)
+    np.testing.assert_array_less(np.abs(recon - corr), 1e-5)
+    np.testing.assert_array_less(np.abs(got - f64_deltas(covs)) / d[:, None, :], 1e-4)
+
+
+def test_triton_kernel_rejects_unsupported():
+    with pytest.raises(ValueError, match="float32"):
+        kernels.sigma_deltas_triton(jnp.eye(53)[None], interpret=True)
+    with pytest.raises(ValueError, match="n <="):
+        kernels.sigma_deltas_triton(jnp.eye(65, dtype=jnp.float32)[None], interpret=True)
+    with pytest.raises(ValueError, match="n <="):
+        kernels.sigma_deltas_triton(jnp.eye(8, dtype=jnp.float32)[None], interpret=True)
+
+
+# --- the dispatch point -------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "n,dtype,platform,route",
+    [
+        (53, jnp.float32, "gpu", "triton"),
+        (59, jnp.float32, "gpu", "triton"),
+        (64, jnp.float32, "gpu", "triton"),
+        (65, jnp.float32, "gpu", "xla"),
+        (53, jnp.float64, "gpu", "xla"),
+        (53, jnp.float32, "cpu", "xla"),
+        (8, jnp.float32, "gpu", "unrolled"),
+        (3, jnp.float64, "cpu", "unrolled"),
+    ],
+)
+def test_sigma_delta_route(n, dtype, platform, route):
+    assert kernels.sigma_delta_route(n, dtype, platform) == route
+
+
+def test_cpu_dispatch_never_reaches_kernel_or_interpreter(monkeypatch):
+    """On the CPU the filter takes the plain path: neither the kernel
+    wrapper nor any Pallas call (so no interpret-mode fallback) is reached,
+    for the banked deltas and for a whole f32 PoseUKF bank step."""
+    from jax.experimental import pallas as pl
+
+    from slam_uwv_kalman_filters_tpu.models import pose_ukf as pukf
+    from slam_uwv_kalman_filters_tpu.ops import dynamics as dyn
+    from slam_uwv_kalman_filters_tpu.parallel import bank as bankmod
+    from slam_uwv_kalman_filters_tpu.utils.config import default_pose_ukf_config
+
+    def forbidden(*a, **k):
+        raise AssertionError("a Pallas kernel was reached on the CPU")
+
+    assert kernels.sigma_delta_route(53, jnp.float32) == "xla"
+    monkeypatch.setattr(kernels, "sigma_deltas_triton", forbidden)
+    monkeypatch.setattr(pl, "pallas_call", forbidden)
+    jax.clear_caches()
+    try:
+        covs = jnp.asarray(raw_unit_covs(3, 53, seed=2), jnp.float32)
+        np.testing.assert_array_equal(
+            np.asarray(kernels.sigma_deltas_banked(covs)),
+            np.asarray(kernels.sigma_deltas_xla(covs)),
+        )
+        f32 = jnp.float32
+        state, params = pukf.init_from_pose(
+            jnp.zeros(3, f32), jnp.eye(3, dtype=f32) * 0.01, jnp.array([1.0, 0, 0, 0], f32),
+            jnp.eye(3, dtype=f32) * 1e-4, default_pose_ukf_config(),
+            dyn.default_uwv_parameters(dtype=f32), dtype=f32,
+        )
+        out = jax.jit(lambda bs: pukf.predict_bank(bs, params, 0.01))(bankmod.replicate(state, 2))
+        assert bool(jnp.isfinite(out.cov).all())
+    finally:
+        monkeypatch.undo()
+        jax.clear_caches()
+
+
+def test_triton_kernel_lowers_for_cuda():
+    """The kernel lowers to XLA's Triton custom call for a CUDA target (the
+    Triton→PTX compile itself needs the card)."""
+    x = jax.ShapeDtypeStruct((256, 53, 53), jnp.float32)
+    lowered = jax.jit(partial(kernels.sigma_deltas_triton)).trace(x).lower(
+        lowering_platforms=("cuda",)
+    )
+    assert "__gpu$xla.gpu.triton" in lowered.as_text()

@@ -5,7 +5,7 @@ sharding *semantics* but every collective stays in one address space. This
 test spawns two OS processes, each a jax.distributed "host" with 4 virtual
 devices, and runs the full sharded PoseUKF step from ``__graft_entry__`` on
 the 8-device global mesh — so the ensemble-statistics reduction crosses the
-process boundary exactly like DCN traffic on a ≥2-host pod slice
+process boundary exactly like inter-host traffic on a ≥2-host cluster
 (BASELINE.md scaling north star; SURVEY.md §2.4, §4.4)."""
 
 import os

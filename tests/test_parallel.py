@@ -4,6 +4,7 @@ mesh sharding on the 8-device virtual CPU mesh, checkpoint round-trips."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from slam_uwv_kalman_filters_tpu.models import pose_ukf as pukf
 from slam_uwv_kalman_filters_tpu.models import velocity_ukf as vukf
@@ -117,9 +118,9 @@ def test_checkpoint_roundtrip():
     # perturb so the restore is meaningful
     bstate = bstate._replace(cov=bstate.cov + 1e-3)
     with tempfile.TemporaryDirectory() as d:
-        checkpoint.save(f"{d}/bank.msgpack", bstate)
+        checkpoint.save(f"{d}/bank.npz", bstate)
         template = bank.replicate(state, 4)
-        restored = checkpoint.restore(f"{d}/bank.msgpack", template)
+        restored = checkpoint.restore(f"{d}/bank.npz", template)
     np.testing.assert_allclose(np.asarray(restored.cov), np.asarray(bstate.cov), atol=0)
     np.testing.assert_allclose(
         np.asarray(restored.mu.orientation), np.asarray(bstate.mu.orientation), atol=0
@@ -133,23 +134,20 @@ def test_checkpoint_roundtrip():
     np.testing.assert_allclose(np.asarray(resumed.cov), np.asarray(bstate.cov[0]), atol=0)
 
 
-def test_checkpoint_orbax_backend_roundtrip():
-    """backend="orbax" writes a StandardCheckpointer directory; restore
-    auto-detects it (directory vs file) and returns host arrays in the
-    target's structure, exactly like the msgpack path."""
-    import tempfile
+def test_checkpoint_npz_rejects_mismatched_template(tmp_path):
+    """The .npz checkpoint stores flattened leaves only; a template with a
+    different leaf count fails loudly, and dtypes round-trip unchanged."""
+    import pytest
 
     state, _ = pose_filter()
-    bstate = bank.replicate(state, 4)
-    bstate = bstate._replace(cov=bstate.cov + 1e-3)
-    with tempfile.TemporaryDirectory() as d:
-        checkpoint.save(f"{d}/bank_orbax", bstate, backend="orbax")
-        template = bank.replicate(state, 4)
-        restored = checkpoint.restore(f"{d}/bank_orbax", template)
-    np.testing.assert_allclose(np.asarray(restored.cov), np.asarray(bstate.cov), atol=0)
-    np.testing.assert_allclose(
-        np.asarray(restored.mu.orientation), np.asarray(bstate.mu.orientation), atol=0
-    )
+    f32 = jax.tree_util.tree_map(lambda a: a.astype(jnp.float32), bank.replicate(state, 2))
+    checkpoint.save(tmp_path / "bank.npz", f32)
+    restored = checkpoint.restore(tmp_path / "bank.npz", f32)
+    assert restored.cov.dtype == np.float32
+    np.testing.assert_array_equal(restored.cov, np.asarray(f32.cov))
+    assert not (tmp_path / "bank.npz.tmp").exists()  # published atomically
+    with pytest.raises(ValueError, match="leaves"):
+        checkpoint.restore(tmp_path / "bank.npz", {"only": np.zeros(3)})
 
 
 def test_init_multihost_single_process():
@@ -205,13 +203,13 @@ def test_save_sharded_scalar_and_replicated_leaves(tmp_path):
         "params": jax.device_put(jnp.eye(3), sharding.replicated(mesh)),  # 8 shards, same data
         "head": jax.device_put(jnp.asarray(7, jnp.int32), sharding.replicated(mesh)),
     }
-    checkpoint.save_sharded(tmp_path / "t.msgpack", tree)
+    checkpoint.save_sharded(tmp_path / "t.npz", tree)
     host_template = {
         "bank": np.zeros((16, 2)),
         "params": np.zeros((3, 3)),
         "head": np.zeros((), np.int32),
     }
-    restored = checkpoint.restore_sharded(tmp_path / "t.msgpack", host_template)
+    restored = checkpoint.restore_sharded(tmp_path / "t.npz", host_template)
     np.testing.assert_array_equal(restored["bank"], np.arange(32.0).reshape(16, 2))
     np.testing.assert_array_equal(restored["params"], np.eye(3))  # NOT (24, 3)
     assert restored["head"] == 7
@@ -227,30 +225,31 @@ def test_restore_sharded_place_and_shape_validation(tmp_path):
     bank_arr = jax.device_put(
         jnp.arange(64.0).reshape(32, 2), sharding.bank_sharding(mesh)
     )
-    checkpoint.save_sharded(tmp_path / "b.msgpack", {"bank": bank_arr})
+    checkpoint.save_sharded(tmp_path / "b.npz", {"bank": bank_arr})
 
     placed = checkpoint.restore_sharded(
-        tmp_path / "b.msgpack", {"bank": jnp.zeros_like(bank_arr)}, place=True
+        tmp_path / "b.npz", {"bank": jnp.zeros_like(bank_arr)}, place=True
     )
     assert placed["bank"].sharding == bank_arr.sharding
     np.testing.assert_array_equal(np.asarray(placed["bank"]), np.asarray(bank_arr))
 
     wrong = {"bank": np.zeros((16, 2))}
     with pytest.raises(ValueError, match="local shape"):
-        checkpoint.restore_sharded(tmp_path / "b.msgpack", wrong)
+        checkpoint.restore_sharded(tmp_path / "b.npz", wrong)
 
 
 def test_init_multihost_failure_handling(monkeypatch):
-    """A failed bootstrap raises when the request was explicit (incl.
-    process_id alone) or the environment shows a real pod; otherwise it warns
-    and proceeds single-process (regression: silent each-host-its-own-bank)."""
-    import warnings
-
+    """A failed bootstrap raises when a process group was requested (incl.
+    process_id alone); with no arguments no group is formed and the run
+    proceeds single-process (regression: silent each-host-its-own-bank)."""
     import pytest
 
     from slam_uwv_kalman_filters_tpu.parallel import sharding as shmod
 
+    calls = []
+
     def boom(*a, **k):
+        calls.append(a)
         raise RuntimeError("coordinator unreachable")
 
     monkeypatch.setattr(jax.distributed, "initialize", boom)
@@ -258,11 +257,21 @@ def test_init_multihost_failure_handling(monkeypatch):
 
     with pytest.raises(RuntimeError):
         shmod.init_multihost(process_id=0)  # explicit → loud
-    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "worker-0,worker-1")
     with pytest.raises(RuntimeError):
-        shmod.init_multihost()  # pod environment → loud
-    monkeypatch.delenv("TPU_WORKER_HOSTNAMES")
-    with warnings.catch_warnings(record=True) as w:
-        warnings.simplefilter("always")
-        assert shmod.init_multihost() == 0  # genuine single host → proceed
-    assert any(issubclass(x.category, RuntimeWarning) for x in w)
+        shmod.init_multihost("localhost:1234", 2, 0)
+    assert len(calls) == 2
+    assert shmod.init_multihost() == 0  # single process → no group
+    assert len(calls) == 2
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32, np.bool_])
+def test_checkpoint_roundtrip_preserves_leaf_dtypes(tmp_path, dtype):
+    """Ring-buffer heads (int), gate flags (bool) and f32 banks come back
+    with their own dtype and value, None leaves included."""
+    tree = {"x": np.arange(6).reshape(2, 3).astype(dtype), "none": None, "s": np.asarray(3, dtype)}
+    checkpoint.save(tmp_path / "t.npz", tree)
+    out = checkpoint.restore(tmp_path / "t.npz", tree)
+    assert out["none"] is None
+    for k in ("x", "s"):
+        assert out[k].dtype == dtype
+        np.testing.assert_array_equal(out[k], tree[k])

@@ -238,8 +238,8 @@ def test_visual_features_bank_shared_detections_broadcast():
 
 def test_body_efforts_bank_per_instance_rates_matches_solo():
     """(B,3) per-instance compensated body rates == vmapped solo efforts
-    update (the exact ``PoseUKF.cpp:581-602`` semantics at bank scale), on
-    both the generic route and the fused tail in interpret mode."""
+    update (the exact ``PoseUKF.cpp:581-602`` semantics at bank scale), in
+    f64 and, to f32 roundoff, at the deployment dtype."""
     bstate, params = _make_bank()
     # heterogeneous cached gyro rates so per-instance compensation differs
     bstate = bstate._replace(
@@ -260,17 +260,13 @@ def test_body_efforts_bank_per_instance_rates_matches_solo():
         solo, _ = pukf.update_body_efforts(_instance(bstate, i), params, z[i], r)
         _assert_state_matches(out, solo, i)
 
-    # fused tail (interpret mode off-TPU) with per-instance aux rates
+    # the f32 bank path with per-instance rates agrees with the f64 result
     f32 = jax.tree_util.tree_map(lambda a: a.astype(jnp.float32), bstate)
-    gen, _ = pukf.update_body_efforts_bank(
+    out32, _ = pukf.update_body_efforts_bank(
         f32, params, z.astype(jnp.float32), r.astype(jnp.float32),
-        rr_bank.astype(jnp.float32), use_fused=False,
+        rr_bank.astype(jnp.float32),
     )
-    fus, _ = pukf.update_body_efforts_bank(
-        f32, params, z.astype(jnp.float32), r.astype(jnp.float32),
-        rr_bank.astype(jnp.float32), use_fused="interpret",
-    )
-    np.testing.assert_allclose(np.asarray(fus.cov), np.asarray(gen.cov), atol=2e-4)
+    np.testing.assert_allclose(np.asarray(out32.cov), np.asarray(out.cov), atol=2e-4)
     np.testing.assert_allclose(
-        np.asarray(fus.mu.velocity), np.asarray(gen.mu.velocity), atol=2e-4
+        np.asarray(out32.mu.velocity), np.asarray(out.mu.velocity), atol=2e-4
     )

@@ -441,20 +441,23 @@ def test_set_process_noise_covariance_all_wrappers():
     np.testing.assert_array_equal(np.asarray(i.params.process_noise), np.eye(6) * 1e-6)
 
 
-def test_update_bank_rejects_unknown_deps():
-    """deps must name real PoseState fields — the fused path freezes non-deps
-    at the mean, so a typo would silently zero a cross-covariance column on
-    TPU while staying correct on CPU."""
+def test_update_bank_rejects_banked_params():
+    """A measurement model closed over a banked parameter set cannot be
+    evaluated per instance by a state-only vmap: update_bank refuses it
+    unless the model declares it reads no parameters."""
     state, params = make_filter()
     from slam_uwv_kalman_filters_tpu.parallel import bank as bankmod
 
     bstate = bankmod.replicate(state, 2)
+    bparams = bankmod.replicate(params, 2)
     z = jnp.zeros((2, 3))
-    r = jnp.tile(jnp.eye(3)[None], (2, 1, 1))
-    with pytest.raises(ValueError, match="unknown PoseState fields"):
-        pukf.update_bank(
-            bstate, params, z, r, lambda s: s.velocity, ("velocty",), use_fused=False
-        )
+    r = jnp.eye(3)
+    with pytest.raises(ValueError, match="banked parameter set"):
+        pukf.update_bank(bstate, bparams, z, r, lambda s: s.velocity)
+    out, _ = pukf.update_bank(
+        bstate, bparams, z, r, lambda s: s.velocity, params_independent=True
+    )
+    assert out.cov.shape == (2, 53, 53)
 
 
 def test_visual_features_info_stacked_per_corner():
@@ -481,8 +484,7 @@ def test_visual_features_info_stacked_per_corner():
 def test_wrapper_noise_setters_pin_state_dtype():
     """set_process_noise_from_config / set_process_noise_covariance keep Q at
     the filter's state dtype (regression: a float64 Q on a float32 filter
-    promoted the covariance on the next predict and silently dropped the bank
-    off the fused TPU path)."""
+    promoted the covariance on the next predict)."""
     state, params = make_filter()
     f32_state = jax.tree_util.tree_map(
         lambda a: a.astype(jnp.float32) if jnp.issubdtype(a.dtype, jnp.floating) else a,

@@ -6,12 +6,14 @@ consistency. This is the acceptance scenario of BASELINE.md."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from slam_uwv_kalman_filters_tpu.models import pose_driver as drv
 from slam_uwv_kalman_filters_tpu.models import pose_ukf as pukf
 from slam_uwv_kalman_filters_tpu.ops import dynamics as dyn
 from slam_uwv_kalman_filters_tpu.ops import geodesy as geo
 from slam_uwv_kalman_filters_tpu.ops import manifolds as mf
+from slam_uwv_kalman_filters_tpu.parallel import bank as bankmod
 from slam_uwv_kalman_filters_tpu.utils import metrics
 from slam_uwv_kalman_filters_tpu.utils.config import default_pose_ukf_config
 
@@ -425,6 +427,38 @@ def test_absent_sensor_groups_match_all_invalid_masks():
         lambda x: np.broadcast_to(np.asarray(x)[:, None, ...], (T, B, *np.shape(x)[1:])),
         lean,
     )
-    fs_bd, _ = drv.run_trajectory_bank(bstate, params, bank_dense, use_fused=False)
-    fs_bl, _ = drv.run_trajectory_bank(bstate, params, bank_lean, use_fused=False)
+    fs_bd, _ = drv.run_trajectory_bank(bstate, params, bank_dense)
+    fs_bl, _ = drv.run_trajectory_bank(bstate, params, bank_lean)
     np.testing.assert_array_equal(np.asarray(fs_bl.cov), np.asarray(fs_bd.cov))
+
+
+@pytest.mark.parametrize("bank", [False, True], ids=["solo", "bank"])
+def test_masked_update_skips_when_no_instance_has_data(bank):
+    """_masked_update runs the update only when some instance has the
+    measurement: with none, the state passes through bit-exact and the info
+    is all zeros; with some, only those instances change."""
+    state, params = pukf.init_from_pose(
+        imu_in_nwu_pos=jnp.zeros(3),
+        imu_in_nwu_pos_cov=jnp.eye(3) * 0.04,
+        imu_in_nwu_rot=jnp.array([1.0, 0, 0, 0]),
+        imu_in_nwu_rot_cov=jnp.eye(3) * 1e-4,
+        config=CFG,
+        model_parameters=dyn.default_uwv_parameters(),
+        imu_delta_t=0.01,
+    )
+    n = 3
+    if bank:
+        s = bankmod.replicate(state, n)
+        fn, z, valid = pukf.update_velocity_bank, jnp.full((n, 3), 0.5), jnp.zeros(n, bool)
+        some = jnp.array([True, False, True])
+    else:
+        s = state
+        fn, z, valid, some = pukf.update_velocity, jnp.full(3, 0.5), jnp.asarray(False), jnp.asarray(True)
+    r = jnp.eye(3) * 1e-3
+    run = jax.jit(lambda s, v: drv._masked_update(s, v, fn, s, params, z, r))
+    out, info = run(s, valid)
+    np.testing.assert_array_equal(np.asarray(out.cov), np.asarray(s.cov))
+    assert not np.asarray(info.mahalanobis2).any()
+    out, info = run(s, some)
+    moved = np.abs(np.asarray(out.mu.velocity) - np.asarray(s.mu.velocity)).reshape(-1, 3).max(axis=1)
+    np.testing.assert_array_equal(moved > 0.1, np.atleast_1d(np.asarray(some)))

@@ -150,7 +150,7 @@ def test_metrics():
 
 
 def test_delayed_buffer_without_x64():
-    """On 32-bit-only runtimes (the f32 TPU path) the buffer must degrade to
+    """On 32-bit-only runtimes (the f32 accelerator path) the buffer must degrade to
     int32 millisecond ticks instead of crashing on an int64 sentinel
     (regression: closest() raised OverflowError with x64 disabled)."""
     with jax.enable_x64(False):
@@ -209,7 +209,7 @@ def test_measurement_valid_batched_rank_aware():
 
 def test_covariance_condition_degenerate_f32():
     """A collapsed covariance reports inf, never NaN (regression: the 1e-300
-    guard underflowed to 0.0 in float32 → 0/0 on the TPU deployment path)."""
+    guard underflowed to 0.0 in float32 → 0/0 on the f32 deployment path)."""
     c = metrics.covariance_condition(jnp.zeros((3, 3), jnp.float32))
     assert np.isinf(float(c)) and not np.isnan(float(c))
     c2 = metrics.covariance_condition(jnp.diag(jnp.array([1.0, 4.0], jnp.float32)))

@@ -1,32 +1,27 @@
 """Extended-precision experiment: double-single (compensated) arithmetic on
 the covariance reconstruct — SURVEY.md §7 hard-part 1, VERDICT r3 item 7.
 
-The north star asks for "bit-comparable f64" behavior; the deployment path is
-f32 on TPU (f64 does not compile on this backend). This experiment measures
-whether double-single (Dekker TwoProd + Neumaier TwoSum, all in f32 ops —
-the classic error-free-transformation construction) applied to the unscented
-covariance reconstruct ½ΣDDᵀ would narrow the f32↔f64 gap, and what it
-costs, WITHOUT guessing:
+The deployment path is f32. This experiment measures whether double-single
+(Dekker TwoProd + Neumaier TwoSum, all in f32 ops — the classic
+error-free-transformation construction) applied to the unscented covariance
+reconstruct ½ΣDDᵀ would narrow the f32↔f64 gap, WITHOUT guessing:
 
 1. **isolated reconstruct error**: with identical f32 sigma deviations D,
-   compute ½ΣDDᵀ (a) in plain f32 (the fused kernels' arithmetic), (b) in
-   double-single f32, and (c) in f64 (ground truth). Error(a) vs error(b)
-   is exactly the precision double-single buys on this phase.
+   compute ½ΣDDᵀ (a) in plain f32, (b) in double-single f32, and (c) in f64
+   (ground truth). Error(a) vs error(b) is exactly the precision
+   double-single buys on this phase.
 2. **relevance**: compare that reconstruct error to the TOTAL single-step
    f32↔f64 covariance gap (process model + manifold mean + Cholesky + the
    reconstruct). If the reconstruct contributes a small fraction, no
    reconstruct-precision scheme can close the gap.
-3. **cost**: wall time of (a) vs (b) on the TPU at a production bank size,
-   plus the phase's share of the predict step from the measured roofline.
 
-Run on the TPU terminal:  python tools/precision_experiment.py
+Run:  python tools/precision_experiment.py   (the f64 half runs on the CPU)
 Results are recorded in docs/TUNING.md ("Extended precision").
 """
 
 from __future__ import annotations
 
 import sys
-import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -35,8 +30,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_compilation_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from slam_uwv_kalman_filters_tpu.utils.platform import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -87,8 +83,7 @@ def ds_outer_accumulate(D):
 
 
 def plain_outer_accumulate(D):
-    """½ΣᵢDᵢDᵢᵀ in plain f32 — the fused kernels' arithmetic (elementwise
-    FMA chain over the sigma axis, matching phase E's per-column loop)."""
+    """½ΣᵢDᵢDᵢᵀ in plain f32 (elementwise FMA chain over the sigma axis)."""
     nsig = D.shape[-2]
     s = jnp.zeros((*D.shape[:-2], D.shape[-1], D.shape[-1]), D.dtype)
 
@@ -140,7 +135,7 @@ def main():
           f"{err_plain/max(err_ds, 1e-30):.0f}x smaller)")
 
     # ---- 2. relevance: total single-step f32 vs f64 covariance gap --------
-    # (f64 runs on CPU — it does not compile on this TPU backend)
+    # (f64 runs on the CPU)
     cpu = jax.devices("cpu")[0]
     with jax.default_device(cpu):
         jax.config.update("jax_enable_x64", True)
@@ -164,24 +159,6 @@ def main():
     print(f"total single-step f32 vs f64 covariance gap: {total_gap:.3e} "
           f"(reconstruct share: plain {err_plain/total_gap:.1%}, "
           f"double-single would leave {err_ds/total_gap:.2%})")
-
-    # ---- 3. cost on the TPU at a production bank --------------------------
-    if backend == "tpu":
-        B = 4096
-        Db = jnp.asarray(np.broadcast_to(D32, (B, *D32.shape)).copy())
-        probe = jax.jit(lambda a: a.reshape(-1)[0])
-        jp = jax.jit(plain_outer_accumulate)
-        jd = jax.jit(ds_outer_accumulate)
-        for name, fn in (("plain", jp), ("double-single", jd)):
-            out = fn(Db)
-            probe(out).item()
-            t0 = time.perf_counter()
-            for _ in range(5):
-                out = fn(Db)
-            probe(out).item()
-            dt = (time.perf_counter() - t0) / 5
-            print(f"  {name} reconstruct at bank {B}: {dt*1e3:.1f} ms "
-                  f"({B/dt:.0f} inst/s)")
 
 
 if __name__ == "__main__":
