@@ -8,9 +8,10 @@ that the system starts and runs correctly on the card.
 Phases on one card, in order (each prints its seconds; any failure exits
 non-zero and prints no result):
 
-1. sigma-delta parity: the route ``ops/kernels.sigma_delta_route`` picks on
-   this card, at bank 131,072, against an f64 NumPy factor at n = 53 and
-   n = 59 on raw-unit covariances (variances 1e-11..1e1). Bounds, relative
+1. sigma-delta parity: ``ops/kernels.sigma_deltas_banked`` (equilibrated
+   batched Cholesky + ± interleave) on this card, at bank 131,072, against
+   an f64 NumPy factor at n = 53 and n = 59 on raw-unit covariances
+   (variances 1e-11..1e1). Bounds, relative
    to √(Pᵢᵢ·Pⱼⱼ) and √Pᵢᵢ: L·Lᵀ reproduces the correlation matrix to 1e-5,
    deltas agree with the f64 deltas to 1e-4 (f32 unit roundoff 6e-8 times
    the ~1e2 growth of a 53-step factorization);
@@ -26,14 +27,19 @@ non-zero and prints no result):
 4. an 8-instance, 200-tick mission in f32 on the card against the same
    mission in f64 on the CPU (computed in a CPU-only child process);
 5. the 1-minute solo ICRA'18 mission at f32: ATE below 0.10 m;
-6. an ``utils/aot`` export round trip of the bank step, outputs equal to
-   the jitted call.
+6. an ``utils/aot.export_step`` round trip of the bank step: lowered to
+   StableHLO, compiled again from it and run on the card, outputs equal to
+   the jitted call (turning the artifact into bytes needs ``flatbuffers``,
+   which a GPU host need not have; ``tests/test_aot.py`` covers the bytes).
 
 With ``--cards 4``: a 1-D ``bank`` mesh over the four cards, the flagship
-mission under jit with the bank sharded (``bank_shard_map``: the Triton
-kernel is a custom call GSPMD cannot partition), ``ensemble_mean``, a
-mid-mission ``save_sharded``/``restore_sharded`` round trip, all compared
-with the same bank on one card.
+mission under ``jit`` with the bank placed by ``NamedSharding`` and the scan
+in ``shard_map``, so each card runs its own shard (the compiled program must
+move no bank data between cards: no all-gather, all-to-all or
+collective-permute; left to GSPMD, the H100 compile all-gathers),
+``ensemble_mean``, a mid-mission
+``save_sharded``/``restore_sharded`` round trip, all compared with the same
+bank on one card.
 
 The last line of standard output is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -154,8 +160,7 @@ def phase_sigma_parity(log):
             raise AssertionError(f"n={n}: non-finite sigma deltas")
         recon, derr = check_deltas(deltas[sample], covs[sample], f"n={n}")
         log(
-            "sigma_parity", n=n, bank=BANK, route=kernels.sigma_delta_route(n, jnp.float32),
-            llt_rel_err=float(recon), delta_rel_err=float(derr), bounds="1e-5/1e-4",
+            "sigma_parity", n=n, bank=BANK, llt_rel_err=float(recon), delta_rel_err=float(derr), bounds="1e-5/1e-4",
             compile_s=compile_s, call_ms=call_ms, seconds=time.perf_counter() - t0,
         )
         del covs, deltas
@@ -298,6 +303,22 @@ def reference_mission(dtype):
     )
 
 
+def compare_reference(f32, f64, label: str):
+    """(position m, velocity m/s, relative covariance-trace) gaps between two
+    ``reference_mission`` results; raises beyond 2e-3 m, 1e-3 m/s, 1e-3 —
+    f32 roundoff amplified by 200 ticks of filter recursion (the same
+    comparison on a CPU gives 3.9e-4 m, 3e-5 m/s, 3e-5)."""
+    (pos32, vel32, trace32), (pos64, vel64, trace64) = f32, f64
+    pos_err = np.abs(pos32 - pos64).max()
+    vel_err = np.abs(vel32 - vel64).max()
+    trace_err = np.abs(trace32 / trace64 - 1.0).max()
+    if not (pos_err < 2e-3 and vel_err < 1e-3 and trace_err < 1e-3):
+        raise AssertionError(
+            f"{label}: position {pos_err:.2e} m, velocity {vel_err:.2e} m/s, trace {trace_err:.2e}"
+        )
+    return pos_err, vel_err, trace_err
+
+
 def _f64_cpu_reference(path: str) -> None:
     """Entry point of the CPU-only child process of phase 4."""
     import jax
@@ -323,17 +344,9 @@ def phase_f32_vs_f64(log):
         )
         with np.load(path) as ref:
             pos64, vel64, trace64 = ref["pos"], ref["vel"], ref["trace"]
-    pos32, vel32, trace32 = reference_mission(jnp.float32)
-    pos_err = np.abs(pos32 - pos64).max()
-    vel_err = np.abs(vel32 - vel64).max()
-    trace_err = np.abs(trace32 / trace64 - 1.0).max()
-    # f32 roundoff amplified by 200 ticks of filter recursion: the same
-    # comparison f32-vs-f64 on a CPU measured 3.9e-4 m, 3e-5 m/s, 3e-5
-    if not (pos_err < 2e-3 and vel_err < 1e-3 and trace_err < 1e-3):
-        raise AssertionError(
-            f"f32 GPU vs f64 CPU: position {pos_err:.2e} m, velocity {vel_err:.2e} m/s, "
-            f"trace {trace_err:.2e}"
-        )
+    pos_err, vel_err, trace_err = compare_reference(
+        reference_mission(jnp.float32), (pos64, vel64, trace64), "f32 GPU vs f64 CPU"
+    )
     log("f32_gpu_vs_f64_cpu", instances=CHECK_INSTANCES, ticks=REF_TICKS,
         position_err_m=float(pos_err), velocity_err_mps=float(vel_err),
         cov_trace_rel_err=float(trace_err), bounds="2e-3 m, 1e-3 m/s, 1e-3",
@@ -377,9 +390,11 @@ def phase_aot(log):
         return pukf.update_velocity_bank(bs, params, z, meas["dvl_cov"])
 
     jitted = jax.jit(step)
-    call = aot.deserialize(aot.serialize(aot.export_step(jitted, bs, z)))
+    exported = aot.export_step(jitted, bs, z)
+    if exported.platforms != ("cuda",):
+        raise AssertionError(f"exported for {exported.platforms}, not the card")
     ref_state, ref_info = jitted(bs, z)
-    out_state, out_info = call(bs, z)
+    out_state, out_info = exported.call(bs, z)
     for a, b in zip(jax.tree_util.tree_leaves((out_state, out_info)),
                     jax.tree_util.tree_leaves((ref_state, ref_info))):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
@@ -405,7 +420,6 @@ def phase_four_cards(log):
     ticks = 100
     state, params, meas = bench.pose_setup(jnp.float32)
     mesh = sharding.make_mesh(jax.devices()[:4])
-    bsh = sharding.bank_sharding(mesh)
     time_bank = NamedSharding(mesh, P(None, "bank"))
 
     def inputs_for(t0_tick, sharded):
@@ -424,7 +438,7 @@ def phase_four_cards(log):
         return drv.run_trajectory_bank(bs, params, inp)
 
     def sharded_mission(bs, inp):
-        spec = lambda tree, s: jax.tree_util.tree_map(lambda x: s(x), tree)
+        spec = lambda tree, s: jax.tree_util.tree_map(s, tree)
         in_specs = (
             spec(bs, lambda _: P("bank")),
             spec(inp, lambda x: P(None, "bank") if _per_instance(x) else P()),
@@ -435,13 +449,21 @@ def phase_four_cards(log):
             mission, mesh=mesh, in_specs=in_specs, out_specs=out_specs, check_vma=False
         )(bs, inp)
 
-    run4 = jax.jit(sharded_mission)
-    ens = jax.jit(sharding.ensemble_mean)
     bs4 = sharding.shard_bank(bench._fresh(bankmod.replicate(state, BANK)), mesh)
+    inp0 = inputs_for(0, True)
     tc = time.perf_counter()
-    half, _ = run4(bs4, inputs_for(0, True))
+    run4 = jax.jit(sharded_mission).lower(bs4, inp0).compile()
+    compile_s = time.perf_counter() - tc
+    hlo = run4.as_text()
+    moves = {op: hlo.count(op) for op in ("all-gather", "all-to-all", "collective-permute")}
+    if any(moves.values()):
+        raise AssertionError(f"the sharded mission moves bank data between cards: {moves}")
+    ens = jax.jit(sharding.ensemble_mean)
+    tc = time.perf_counter()
+    half, _ = run4(bs4, inp0)
     jax.block_until_ready(half.cov)
     first_s = time.perf_counter() - tc
+    del inp0
     with tempfile.TemporaryDirectory() as td:
         checkpoint.save_sharded(os.path.join(td, "mid.npz"), half)
         resumed = checkpoint.restore_sharded(os.path.join(td, "mid.npz"), half, place=True)
@@ -458,8 +480,8 @@ def phase_four_cards(log):
         raise AssertionError("final bank is not sharded over 4 cards")
     del half, resumed, final4, bs4
     log("four_card_mission", bank=BANK, per_card=BANK // 4, ticks=2 * ticks,
-        compile_and_first_half_s=first_s, second_half_s=run_s,
-        ticks_per_s=BANK * ticks / run_s)
+        compile_s=compile_s, first_half_s=first_s, second_half_s=run_s,
+        ticks_per_s=BANK * ticks / run_s, all_reduces=hlo.count("all-reduce"))
 
     one = jax.devices()[0]
     run1 = jax.jit(mission)
@@ -488,6 +510,8 @@ def main(argv=None) -> int:
 
     import jax
 
+    from slam_uwv_kalman_filters_tpu.utils.platform import enable_compile_cache
+
     devices = jax.devices()
     if devices[0].platform != "gpu":
         print(f"chip_smoke: needs a GPU, JAX found {devices[0].platform}", file=sys.stderr)
@@ -497,8 +521,6 @@ def main(argv=None) -> int:
         return 2
     card = _card_line()
     print(f"card: {card}", flush=True)
-    from slam_uwv_kalman_filters_tpu.utils.platform import enable_compile_cache
-
     print(f"compile cache: {enable_compile_cache()}", flush=True)
     log = Log(card)
     dev = devices[0]

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from ..ops import manifolds as mf
 from ..ops import ukf
+from ..ops.linalg_small import mm
 from ..utils.validation import check_measurement
 
 __all__ = [
@@ -108,9 +109,9 @@ def update_range(
             [jnp.zeros((), z.dtype), jnp.zeros((), z.dtype), -chi.distance[0]]
         )
         n = chi.normal
-        v = jnp.dot(unit_direction, n)
+        v = mm(unit_direction, n)
         safe_v = jnp.where(v == 0.0, jnp.ones_like(v), v)
-        expected = jnp.dot(bottom - origin, n) / safe_v
+        expected = mm(bottom - origin, n) / safe_v
         return jnp.where(v == 0.0, jnp.zeros_like(expected), expected)[None]
 
     mu, cov, info = ukf.update(

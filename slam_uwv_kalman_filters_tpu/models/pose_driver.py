@@ -288,7 +288,8 @@ def _masked_update(state, valid, update_fn, *args):
         return select_where(valid, new_state, state), info
 
     def skip():
-        info = jax.eval_shape(update_fn, *args)[1]
+        # a closure: ``args`` may hold static configs (e.g. the camera)
+        info = jax.eval_shape(lambda: update_fn(*args))[1]
         return state, jax.tree_util.tree_map(lambda a: jnp.zeros(a.shape, a.dtype), info)
 
     return jax.lax.cond(jnp.any(valid), run, skip)

@@ -504,7 +504,7 @@ def assemble_process_noise(mu: PoseState, params: PoseUKFParams, dt) -> jax.Arra
     ori_new = mm(e_rot, mm(rot, q0[so, so], rot.T), e_rot.T)
 
     scaled_velocity = mu.velocity * jnp.asarray([1.0, 1.0, 10.0], mu.velocity.dtype)
-    wv_extra = params.water_velocity_scale * jnp.dot(scaled_velocity, scaled_velocity) * dt
+    wv_extra = params.water_velocity_scale * mm(scaled_velocity, scaled_velocity) * dt
     wv_mask = _diag_mask(("water_velocity", "water_velocity_below"), q0.dtype)
 
     # pin Q to the configured process-noise dtype: float64 scalar params (e.g.
@@ -525,8 +525,7 @@ def predict(state: PoseUKFState, params: PoseUKFParams, dt) -> PoseUKFState:
 def predict_bank(bstate: PoseUKFState, params: PoseUKFParams, dt) -> PoseUKFState:
     """Bank-level prediction (leading bank axis on every state leaf):
     ``vmap(predict)``. Both shared and banked (Monte-Carlo sweep) parameter
-    sets are supported; under ``vmap`` the sigma-point deltas of the whole
-    bank come from one banked call (``ops/kernels.sigma_deltas_fast``)."""
+    sets are supported."""
     if params.process_noise.ndim == 3:  # per-instance parameter bank
         return jax.vmap(lambda s, p: predict(s, p, dt))(bstate, params)
     return jax.vmap(lambda s: predict(s, params, dt))(bstate)

@@ -1,5 +1,4 @@
-"""Banked factorizations of the filter hot path, and the one place that
-chooses how they run.
+"""Banked factorizations of the filter hot path.
 
 Every unscented predict and update starts from the ukfom sigma-point deltas
 of the covariance: row 0 zero, rows 2j+1 / 2j+2 the ±j-th column of
@@ -9,60 +8,21 @@ beyond f32 — so the factor is taken **diagonally equilibrated**:
 L = D·chol(D⁻¹·P·D⁻¹) with D = √diag(P), exact in infinite precision, with a
 well-conditioned correlation matrix in the middle.
 
-:func:`sigma_delta_route` is the single dispatch point. It picks one of
-
-* ``"unrolled"`` — n ≤ ``UNROLL_LIMIT``: fully unrolled scalar Cholesky
-  (``linalg_small``), which XLA fuses into the surrounding graph;
-* ``"triton"`` — f32 on a GPU, n ≤ ``KERNEL_MAX_N``: one Pallas kernel
-  through Triton (:func:`sigma_deltas_triton`) that reads each covariance
-  once and writes its deltas once;
-* ``"xla"`` — everything else (CPU, f64 oracles): equilibrate, batched
-  ``jnp.linalg.cholesky``, un-equilibrate, ± interleave
-  (:func:`sigma_deltas_xla`, also the reference the kernel is tested
-  against).
-
-Pallas interpret mode is never chosen here: only tests ask for it, by
-calling :func:`sigma_deltas_triton` with ``interpret=True``.
+One path runs on every platform: small matrices (n ≤ ``UNROLL_LIMIT``) use
+the fully unrolled scalar Cholesky of ``linalg_small``, which XLA fuses into
+the surrounding graph; larger ones the batched ``jnp.linalg.cholesky``
+(cuSOLVER on a GPU, LAPACK on the CPU). The functions are written for a
+single matrix or an (N, n, n) bank and batch under ``vmap``.
 """
 
 from __future__ import annotations
 
-from functools import partial
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import triton as plgpu
 
 from .linalg_small import UNROLL_LIMIT, cholesky_unrolled, solve_spd
 
-__all__ = [
-    "KERNEL_MAX_N",
-    "cholesky_banked",
-    "sigma_delta_route",
-    "sigma_deltas_banked",
-    "sigma_deltas_fast",
-    "sigma_deltas_triton",
-    "sigma_deltas_xla",
-    "solve_spd_banked",
-]
-
-# The kernel pads each matrix to KERNEL_MAX_N × KERNEL_MAX_N (Triton tensors
-# have power-of-two shapes) with an identity tail. 64 covers the 53-DOF
-# PoseUKF and its 59-DOF marker augmentation.
-KERNEL_MAX_N = 64
-
-
-def sigma_delta_route(n: int, dtype, platform: str | None = None) -> str:
-    """How an (N, n, n) bank of ``dtype`` covariances is factored on
-    ``platform`` (default: JAX's default backend): ``"unrolled"``,
-    ``"triton"`` or ``"xla"`` — see the module docstring."""
-    if n <= UNROLL_LIMIT:
-        return "unrolled"
-    platform = jax.default_backend() if platform is None else platform
-    if platform == "gpu" and jnp.dtype(dtype) == jnp.float32 and n <= KERNEL_MAX_N:
-        return "triton"
-    return "xla"
+__all__ = ["cholesky_banked", "sigma_deltas_banked", "solve_spd_banked"]
 
 
 def _equilibrate(cov: jax.Array) -> tuple[jax.Array, jax.Array]:
@@ -90,114 +50,18 @@ def cholesky_banked(cov: jax.Array) -> jax.Array:
 
 
 @jax.jit
-def sigma_deltas_xla(cov: jax.Array) -> jax.Array:
-    """(N, n, n) SPD bank → (N, 2n+1, n) ukfom deltas through XLA:
-    :func:`cholesky_banked`, then the ± interleave of the factor's columns."""
-    nb, n = cov.shape[0], cov.shape[-1]
-    cols = jnp.swapaxes(cholesky_banked(cov), -1, -2)  # row j = column j of L
-    pm = jnp.stack([cols, -cols], axis=-2).reshape(nb, 2 * n, n)
-    return jnp.concatenate([jnp.zeros((nb, 1, n), cov.dtype), pm], axis=-2)
-
-
-def _sigma_deltas_kernel(a_ref, o_ref, *, n: int, nb: int, group: int):
-    """``group`` instances per program, each padded to P×P in registers.
-
-    a_ref: the (N·n·n,) flattened covariance bank; o_ref: the flattened
-    (N·(2n+1)·n,) deltas. The correlation matrix is factored by n
-    right-looking steps: column j is pulled out with a masked reduction,
-    scaled by its pivot, written out as delta rows 2j+1 / 2j+2 (times √diag,
-    which undoes the equilibration), and removed from the trailing matrix
-    by a rank-1 downdate. Padded rows/columns carry an identity, so they
-    never feed a NaN into a real entry and are never stored."""
-    p = KERNEL_MAX_N
-    m = 2 * n + 1
-    inst = pl.program_id(0) * group + jnp.arange(group)  # (G,)
-    g3 = inst[:, None, None]
-    r3 = jnp.arange(p)[None, :, None]
-    c3 = jnp.arange(p)[None, None, :]
-    inside = (g3 < nb) & (r3 < n) & (c3 < n)
-    a = plgpu.load(a_ref.at[(g3 * n + r3) * n + c3], mask=inside, other=0.0)
-    a = jnp.where((r3 == c3) & (r3 >= n), 1.0, a)  # identity tail
-    diag = jnp.sum(jnp.where(r3 == c3, a, 0.0), axis=2)  # (G, P)
-    tiny = jnp.finfo(a.dtype).tiny
-    d = jnp.sqrt(jnp.maximum(diag, tiny))
-    dinv = 1.0 / d
-    s = a * dinv[:, :, None] * dinv[:, None, :]
-
-    g2 = inst[:, None]  # (G, 1)
-    r2 = jnp.arange(p)[None, :]  # (1, P)
-    row_ok = (g2 < nb) & (r2 < n)
-    row0 = (g2 * m) * n + r2
-    plgpu.store(o_ref.at[row0], jnp.zeros((group, p), a.dtype), mask=row_ok)
-
-    def step(j, s):
-        col = jnp.sum(jnp.where(c3 == j, s, 0.0), axis=2)  # (G, P): S[:, j]
-        piv = jnp.sum(jnp.where(r2 == j, col, 0.0), axis=1, keepdims=True)
-        lj = jnp.where(r2 >= j, col * (1.0 / jnp.sqrt(piv)), 0.0)
-        delta = lj * d
-        plus = (g2 * m + 2 * j + 1) * n + r2
-        plgpu.store(o_ref.at[plus], delta, mask=row_ok)
-        plgpu.store(o_ref.at[plus + n], -delta, mask=row_ok)
-        return s - lj[:, :, None] * lj[:, None, :]
-
-    jax.lax.fori_loop(0, n, step, s)
-
-
-@partial(jax.jit, static_argnames=("interpret", "group", "num_warps"))
-def sigma_deltas_triton(
-    cov: jax.Array, *, interpret: bool = False, group: int = 1, num_warps: int = 4
-) -> jax.Array:
-    """(N, n, n) f32 SPD bank → (N, 2n+1, n) ukfom deltas in one Pallas
-    kernel through Triton, same values as :func:`sigma_deltas_xla`.
-    ``interpret=True`` runs it in the Pallas interpreter (CPU tests)."""
-    nb, n = cov.shape[0], cov.shape[-1]
-    if not UNROLL_LIMIT < n <= KERNEL_MAX_N:
-        raise ValueError(f"sigma_deltas_triton takes {UNROLL_LIMIT} < n <= {KERNEL_MAX_N}, got {n}")
-    if cov.dtype != jnp.float32:
-        raise ValueError(f"sigma_deltas_triton takes float32, got {cov.dtype}")
-    out = pl.pallas_call(
-        partial(_sigma_deltas_kernel, n=n, nb=nb, group=group),
-        out_shape=jax.ShapeDtypeStruct((nb * (2 * n + 1) * n,), cov.dtype),
-        grid=(pl.cdiv(nb, group),),
-        backend="triton",
-        compiler_params=plgpu.CompilerParams(num_warps=num_warps, num_stages=1),
-        interpret=interpret,
-        name="sigma_deltas",
-    )(cov.reshape(-1))
-    return out.reshape(nb, 2 * n + 1, n)
-
-
-@jax.jit
 def sigma_deltas_banked(cov: jax.Array) -> jax.Array:
     """(N, n, n) or (n, n) SPD → (N, 2n+1, n) or (2n+1, n) ukfom sigma-point
-    tangent deltas, by the route :func:`sigma_delta_route` picks."""
+    tangent deltas: :func:`cholesky_banked`, then the ± interleave of the
+    factor's columns."""
     single = cov.ndim == 2
     if single:
         cov = cov[None]
-    route = sigma_delta_route(cov.shape[-1], cov.dtype)
-    out = sigma_deltas_triton(cov) if route == "triton" else sigma_deltas_xla(cov)
+    nb, n = cov.shape[0], cov.shape[-1]
+    cols = jnp.swapaxes(cholesky_banked(cov), -1, -2)  # row j = column j of L
+    pm = jnp.stack([cols, -cols], axis=-2).reshape(nb, 2 * n, n)
+    out = jnp.concatenate([jnp.zeros((nb, 1, n), cov.dtype), pm], axis=-2)
     return out[0] if single else out
-
-
-@jax.custom_batching.custom_vmap
-def sigma_deltas_fast(cov: jax.Array) -> jax.Array:
-    """ukfom sigma-point deltas of one (n, n) SPD matrix. Under ``vmap`` the
-    whole bank goes to :func:`sigma_deltas_banked` in one call, so the
-    per-instance filter code in ``ops/ukf.py`` reaches the banked kernel."""
-    return sigma_deltas_banked(cov)
-
-
-@sigma_deltas_fast.def_vmap
-def _sigma_deltas_fast_vmap(axis_size, in_batched, cov):
-    del axis_size
-    (batched,) = in_batched
-    if not batched:
-        return sigma_deltas_banked(cov), False
-    lead = cov.shape[: cov.ndim - 2]
-    flat = cov.reshape((-1,) + cov.shape[-2:])
-    out = sigma_deltas_banked(flat)
-    n = cov.shape[-1]
-    return out.reshape(lead + (2 * n + 1, n)), True
 
 
 @jax.jit

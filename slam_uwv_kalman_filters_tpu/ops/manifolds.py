@@ -128,7 +128,7 @@ def quat_exp(v: jax.Array) -> jax.Array:
     Exp(v) = [cos(|v|/2), sin(|v|/2)·v/|v|], Taylor-expanded near |v|=0.
     Matches MTK's ``SOn::exp`` half-angle convention.
     """
-    theta2 = jnp.dot(v, v)
+    theta2 = mm(v, v)
     w = jnp.cos(0.5 * jnp.sqrt(theta2))
     xyz = _sinc_half(theta2) * v
     return jnp.concatenate([w[None], xyz])
@@ -143,7 +143,7 @@ def quat_log(q: jax.Array) -> jax.Array:
     q = jnp.where(q[0] < 0.0, -q, q)
     w = jnp.clip(q[0], -1.0, 1.0)
     xyz = q[1:4]
-    n2 = jnp.dot(xyz, xyz)
+    n2 = mm(xyz, xyz)
     n = jnp.sqrt(n2)
     theta = 2.0 * jnp.arctan2(n, w)
     small = n2 < 1e-24
@@ -239,7 +239,7 @@ def s2_tangent_basis(x: jax.Array) -> jax.Array:
     # The sign stabilizes the reflection (|v| stays away from 0 ⇔ x_s·e₃ ≥ 0).
     xs = sign * x
     v = xs - e3
-    v2 = jnp.dot(v, v)
+    v2 = mm(v, v)
     safe_v2 = jnp.where(v2 < 1e-24, jnp.ones_like(v2), v2)
     H = jnp.eye(3, dtype=x.dtype) - 2.0 * jnp.outer(v, v) / safe_v2
     H = jnp.where(v2 < 1e-24, jnp.eye(3, dtype=x.dtype), H)
@@ -252,7 +252,7 @@ def s2_tangent_basis(x: jax.Array) -> jax.Array:
 def s2_boxplus(x: jax.Array, delta: jax.Array, scale=1.0) -> jax.Array:
     """Sphere exponential map: x ⊞ δ = cos(|v|)·x + sin(|v|)·v/|v|, v = B(x)·δ·scale."""
     v = mm(s2_tangent_basis(x), delta * scale)
-    theta2 = jnp.dot(v, v)
+    theta2 = mm(v, v)
     theta = jnp.sqrt(theta2)
     small = theta2 < 1e-24
     safe_theta = jnp.where(small, jnp.ones_like(theta), theta)
@@ -271,7 +271,7 @@ def s2_boxminus(y: jax.Array, x: jax.Array) -> jax.Array:
     """
     c = jnp.cross(x, y)
     s = jnp.linalg.norm(c)
-    d = jnp.dot(x, y)
+    d = mm(x, y)
     theta = jnp.arctan2(s, d)
     # tangential component of y at x
     t = y - d * x

@@ -33,7 +33,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import jax
 import jax.numpy as jnp
 
-from .kernels import sigma_deltas_fast, solve_spd_banked
+from .kernels import sigma_deltas_banked, solve_spd_banked
 from .linalg_small import mm, solve_spd
 from .manifolds import ProductManifold
 
@@ -81,9 +81,8 @@ def sigma_point_deltas(cov: jax.Array, *, jitter: float = 0.0) -> jax.Array:
     """
     if jitter:
         cov = cov + jitter * jnp.eye(cov.shape[-1], dtype=cov.dtype)
-    # one banked call under vmap: equilibrated Cholesky + ±interleave
-    # (ops/kernels.py)
-    return sigma_deltas_fast(cov)
+    # equilibrated Cholesky + ±interleave (ops/kernels.py); batches under vmap
+    return sigma_deltas_banked(cov)
 
 
 def sigma_points(manifold: ProductManifold, mu: Any, cov: jax.Array, *, jitter: float = 0.0) -> Any:

@@ -100,11 +100,12 @@ def with_bank_constraint(tree: Any, mesh: Mesh, axis: str = BANK_AXIS) -> Any:
 def bank_shard_map(fn, mesh: Mesh, axis: str = BANK_AXIS):
     """Run a bank→bank step function per-device on its local bank shard.
 
-    A hand-written kernel is a custom call that GSPMD cannot partition — under
-    plain ``jit`` on a sharded bank XLA would gather the bank to one device
-    first. Wrapping the step in ``shard_map`` keeps every device running on
-    its local shard with zero communication (the bank axis is embarrassingly
-    parallel, SURVEY.md §2.4).
+    Wrapping the step in ``shard_map`` pins every device to its local shard
+    with zero communication (the bank axis is embarrassingly parallel,
+    SURVEY.md §2.4), whatever the step holds. Under a plain ``jit`` GSPMD
+    picks the layouts itself: the H100 compile of the mission scan
+    replicates the per-instance ``info`` of the masked-update ``lax.cond``
+    branches and all-gathers it between devices on every fired update.
 
     ``fn``'s inputs and outputs must all carry the bank as their leading
     axis (ensemble reductions belong outside the wrapped step)."""

@@ -1,10 +1,10 @@
-"""Banked factorizations (``ops/kernels.py``): the plain XLA path against
-LAPACK / f64 NumPy, the GPU sigma-delta kernel in Pallas interpret mode
-against f64 NumPy, and the one dispatch point that chooses between them."""
-
-from functools import partial
+"""Banked factorizations (``ops/kernels.py``): the equilibrated Cholesky,
+sigma deltas and SPD solve against LAPACK / f64 NumPy, in f64 and at the
+f32 bounds ``chip_smoke.py`` holds the card to, and the one size-based
+choice between the unrolled and the batched factorization."""
 
 import jax
+import jax.extend as jex
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -54,8 +54,22 @@ def f64_deltas(covs):
     return out
 
 
-def triton_interpret(cov, **kw):
-    return np.asarray(kernels.sigma_deltas_triton(jnp.asarray(cov, jnp.float32), interpret=True, **kw))
+def f32_deltas(cov):
+    return np.asarray(kernels.sigma_deltas_banked(jnp.asarray(cov, jnp.float32)))
+
+
+def primitives(jaxpr) -> set:
+    """Names of every primitive in ``jaxpr`` and its sub-jaxprs."""
+    out = set()
+    for eqn in jaxpr.eqns:
+        out.add(eqn.primitive.name)
+        for param in eqn.params.values():
+            for sub in param if isinstance(param, (list, tuple)) else [param]:
+                if isinstance(sub, jex.core.ClosedJaxpr):
+                    out |= primitives(sub.jaxpr)
+                elif isinstance(sub, jex.core.Jaxpr):
+                    out |= primitives(sub)
+    return out
 
 
 def test_cholesky_banked_matches_lapack_53():
@@ -68,17 +82,16 @@ def test_cholesky_banked_matches_lapack_53():
 
 
 def test_cholesky_banked_pads_nonmultiple_batch():
-    """A bank that is not a multiple of the kernel's instances-per-program:
-    the last program's missing instances are masked, never written."""
+    """Odd bank sizes factor like any other, in f64 and in f32."""
     covs = random_spd_batch(5, 53)
     out = kernels.cholesky_banked(covs)
     assert out.shape == (5, 53, 53)
     np.testing.assert_allclose(np.asarray(out), np.linalg.cholesky(np.asarray(covs)), atol=1e-10)
-    got = triton_interpret(raw_unit_covs(5, 53, seed=1), group=4)
-    ref = f64_deltas(raw_unit_covs(5, 53, seed=1))
+    raw = raw_unit_covs(5, 53, seed=1)
+    got = f32_deltas(raw)
     assert got.shape == (5, 107, 53)
-    scale = np.sqrt(np.diagonal(raw_unit_covs(5, 53, seed=1), axis1=1, axis2=2))[:, None, :]
-    np.testing.assert_array_less(np.abs(got - ref) / scale, 1e-4)
+    scale = np.sqrt(np.diagonal(raw, axis1=1, axis2=2))[:, None, :]
+    np.testing.assert_array_less(np.abs(got - f64_deltas(raw)) / scale, 1e-4)
 
 
 def test_cholesky_banked_small_sizes_unrolled():
@@ -90,21 +103,18 @@ def test_cholesky_banked_small_sizes_unrolled():
         )
 
 
-def test_sigma_deltas_fast_vmap_routes_to_banked(monkeypatch):
-    """The custom_vmap rule hands the whole vmapped bank to one
-    ``sigma_deltas_banked`` call; nested vmaps and an unbatched call give
-    the same deltas."""
+def test_sigma_deltas_under_vmap_match_banked_call():
+    """The per-instance filter code reaches the deltas one matrix at a time
+    under ``vmap``: a vmapped, a nested-vmapped and an unbatched call give
+    the deltas of the banked call."""
     covs = random_spd_batch(6, 12)
-    calls = []
-    banked = kernels.sigma_deltas_banked
-    monkeypatch.setattr(kernels, "sigma_deltas_banked", lambda c: calls.append(c.shape) or banked(c))
-    out = jax.vmap(kernels.sigma_deltas_fast)(covs)
-    assert (6, 12, 12) in calls and all(c[0] == 6 for c in calls if len(c) == 3)
     ref = f64_deltas(covs)
+    np.testing.assert_allclose(np.asarray(kernels.sigma_deltas_banked(covs)), ref, atol=1e-10)
+    out = jax.vmap(kernels.sigma_deltas_banked)(covs)
     np.testing.assert_allclose(np.asarray(out), ref, atol=1e-10)
-    nested = jax.vmap(jax.vmap(kernels.sigma_deltas_fast))(covs.reshape(2, 3, 12, 12))
+    nested = jax.vmap(jax.vmap(kernels.sigma_deltas_banked))(covs.reshape(2, 3, 12, 12))
     np.testing.assert_allclose(np.asarray(nested).reshape(6, 25, 12), ref, atol=1e-10)
-    one = kernels.sigma_deltas_fast(covs[0])
+    one = kernels.sigma_deltas_banked(covs[0])
     np.testing.assert_allclose(np.asarray(one), ref[0], atol=1e-10)
 
 
@@ -157,9 +167,10 @@ def test_solve_spd_banked_matches_numpy():
 
 
 def test_banked_ops_skip_pallas_for_f64():
-    """f64 banks take the XLA path on every platform — the kernel is f32
-    only — and the f64 results are exact."""
-    assert kernels.sigma_delta_route(12, jnp.float64, "gpu") == "xla"
+    """f64 banks run the same plain XLA path as f32 ones, with no Pallas
+    call anywhere, and the f64 results are exact."""
+    spd12 = jnp.zeros((2, 12, 12), jnp.float64)
+    assert "pallas_call" not in primitives(jax.make_jaxpr(kernels.sigma_deltas_banked)(spd12).jaxpr)
     rng = np.random.default_rng(7)
     a = rng.normal(size=(130, 12, 12))
     spd = jnp.asarray(a @ np.transpose(a, (0, 2, 1)) + 10 * np.eye(12))
@@ -176,19 +187,19 @@ def test_banked_ops_skip_pallas_for_f64():
     np.testing.assert_allclose(np.asarray(spd @ x), np.asarray(rhs), atol=1e-8)
 
 
-# --- the GPU kernel, in Pallas interpret mode -------------------------------
+# --- f32 sigma deltas against f64 NumPy ------------------------------------
 
 
 @pytest.mark.parametrize(
-    "n,nb,group",
-    [(53, 1, 1), (53, 5, 2), (53, 7, 4), (59, 3, 1), (59, 5, 2), (9, 3, 1), (64, 2, 1)],
+    "n,nb",
+    [(53, 1), (53, 5), (53, 7), (59, 3), (59, 5), (9, 3), (64, 2)],
 )
-def test_triton_kernel_matches_f64_numpy(n, nb, group):
-    """The kernel's deltas equal the f64 NumPy deltas to f32 accuracy, for
-    the PoseUKF (53) and its marker augmentation (59), the smallest and
-    largest sizes it takes, and banks that do not fill the last program."""
+def test_sigma_deltas_f32_matches_f64_numpy(n, nb):
+    """f32 deltas equal the f64 NumPy deltas to f32 accuracy, for the
+    PoseUKF (53), its marker augmentation (59), the smallest batched size
+    (9) and a 64-wide state, on odd and even banks."""
     covs = raw_unit_covs(nb, n, seed=n + nb)
-    got = triton_interpret(covs, group=group)
+    got = f32_deltas(covs)
     assert got.shape == (nb, 2 * n + 1, n)
     ref = f64_deltas(covs)
     scale = np.sqrt(np.diagonal(covs, axis1=1, axis2=2))[:, None, :]
@@ -197,54 +208,56 @@ def test_triton_kernel_matches_f64_numpy(n, nb, group):
 
 
 @pytest.mark.parametrize("n", [53, 59])
-def test_triton_kernel_ill_conditioned_raw_units(n):
-    """Raw-unit covariances (variances 1e-11..1e1, condition ~1e12):
-    L·Lᵀ from the kernel's deltas reproduces the correlation matrix to
-    1e-5, and the deltas are within 1e-4 of the f64 deltas, both relative
-    to √(Pᵢᵢ·Pⱼⱼ) / √Pᵢᵢ — the f32 bounds chip_smoke.py holds the card to."""
+def test_sigma_deltas_f32_ill_conditioned_raw_units(n):
+    """Raw-unit covariances (variances 1e-11..1e1, condition ~1e12): L·Lᵀ
+    from the f32 deltas reproduces the correlation matrix to 1e-5, and the
+    deltas are within 1e-4 of the f64 deltas, relative to √(Pᵢᵢ·Pⱼⱼ) and
+    √Pᵢᵢ — the bounds of ``chip_smoke.check_deltas``, which is the check
+    used here."""
+    import chip_smoke
+
     covs = raw_unit_covs(4, n, seed=100 + n)
-    got = triton_interpret(covs).astype(np.float64)
-    d = np.sqrt(np.diagonal(covs, axis1=1, axis2=2))
-    lc = got[:, 1::2, :] / d[:, None, :]  # rows: equilibrated factor columns
-    corr = covs / (d[:, :, None] * d[:, None, :])
-    recon = np.einsum("bji,bjk->bik", lc, lc)
-    np.testing.assert_array_less(np.abs(recon - corr), 1e-5)
-    np.testing.assert_array_less(np.abs(got - f64_deltas(covs)) / d[:, None, :], 1e-4)
+    got = f32_deltas(covs)
+    recon, derr = chip_smoke.check_deltas(got, covs, f"n={n}")
+    assert recon < 1e-5 and derr < 1e-4
+    # the check is tight enough to catch a 1e-3 relative error in the factor
+    bad = got.copy()
+    bad[:, 1::2] *= 1.0 + 1e-3
+    with pytest.raises(AssertionError):
+        chip_smoke.check_deltas(bad, covs, "perturbed")
 
 
-def test_triton_kernel_rejects_unsupported():
-    with pytest.raises(ValueError, match="float32"):
-        kernels.sigma_deltas_triton(jnp.eye(53)[None], interpret=True)
-    with pytest.raises(ValueError, match="n <="):
-        kernels.sigma_deltas_triton(jnp.eye(65, dtype=jnp.float32)[None], interpret=True)
-    with pytest.raises(ValueError, match="n <="):
-        kernels.sigma_deltas_triton(jnp.eye(8, dtype=jnp.float32)[None], interpret=True)
-
-
-# --- the dispatch point -------------------------------------------------------
+# --- the size-based choice ----------------------------------------------------
 
 
 @pytest.mark.parametrize(
-    "n,dtype,platform,route",
+    "n,dtype,batched",
     [
-        (53, jnp.float32, "gpu", "triton"),
-        (59, jnp.float32, "gpu", "triton"),
-        (64, jnp.float32, "gpu", "triton"),
-        (65, jnp.float32, "gpu", "xla"),
-        (53, jnp.float64, "gpu", "xla"),
-        (53, jnp.float32, "cpu", "xla"),
-        (8, jnp.float32, "gpu", "unrolled"),
-        (3, jnp.float64, "cpu", "unrolled"),
+        (1, jnp.float32, False),
+        (3, jnp.float64, False),
+        (kernels.UNROLL_LIMIT, jnp.float32, False),
+        (kernels.UNROLL_LIMIT + 1, jnp.float32, True),
+        (12, jnp.float64, True),
+        (53, jnp.float32, True),
+        (59, jnp.float32, True),
+        (65, jnp.float64, True),
     ],
 )
-def test_sigma_delta_route(n, dtype, platform, route):
-    assert kernels.sigma_delta_route(n, dtype, platform) == route
+def test_factorization_choice_depends_only_on_size(n, dtype, batched):
+    """n ≤ ``UNROLL_LIMIT`` takes the unrolled scalar Cholesky (no
+    ``cholesky`` primitive), larger n the batched ``jnp.linalg.cholesky``;
+    the dtype changes nothing and no Pallas call is ever traced."""
+    cov = jnp.zeros((3, n, n), dtype)
+    for fn in (kernels.cholesky_banked, kernels.sigma_deltas_banked):
+        prims = primitives(jax.make_jaxpr(fn)(cov).jaxpr)
+        assert ("cholesky" in prims) == batched
+        assert "pallas_call" not in prims
 
 
 def test_cpu_dispatch_never_reaches_kernel_or_interpreter(monkeypatch):
-    """On the CPU the filter takes the plain path: neither the kernel
-    wrapper nor any Pallas call (so no interpret-mode fallback) is reached,
-    for the banked deltas and for a whole f32 PoseUKF bank step."""
+    """On the CPU a whole f32 PoseUKF bank step takes the plain path: with
+    every Pallas call made to fail, the banked deltas and a bank predict +
+    update still run (so no interpret-mode fallback can be reached)."""
     from jax.experimental import pallas as pl
 
     from slam_uwv_kalman_filters_tpu.models import pose_ukf as pukf
@@ -255,34 +268,40 @@ def test_cpu_dispatch_never_reaches_kernel_or_interpreter(monkeypatch):
     def forbidden(*a, **k):
         raise AssertionError("a Pallas kernel was reached on the CPU")
 
-    assert kernels.sigma_delta_route(53, jnp.float32) == "xla"
-    monkeypatch.setattr(kernels, "sigma_deltas_triton", forbidden)
     monkeypatch.setattr(pl, "pallas_call", forbidden)
     jax.clear_caches()
     try:
-        covs = jnp.asarray(raw_unit_covs(3, 53, seed=2), jnp.float32)
-        np.testing.assert_array_equal(
-            np.asarray(kernels.sigma_deltas_banked(covs)),
-            np.asarray(kernels.sigma_deltas_xla(covs)),
-        )
+        covs = raw_unit_covs(3, 53, seed=2)
+        got = f32_deltas(covs)
+        scale = np.sqrt(np.diagonal(covs, axis1=1, axis2=2))[:, None, :]
+        np.testing.assert_array_less(np.abs(got - f64_deltas(covs)) / scale, 1e-4)
         f32 = jnp.float32
         state, params = pukf.init_from_pose(
             jnp.zeros(3, f32), jnp.eye(3, dtype=f32) * 0.01, jnp.array([1.0, 0, 0, 0], f32),
             jnp.eye(3, dtype=f32) * 1e-4, default_pose_ukf_config(),
             dyn.default_uwv_parameters(dtype=f32), dtype=f32,
         )
-        out = jax.jit(lambda bs: pukf.predict_bank(bs, params, 0.01))(bankmod.replicate(state, 2))
+
+        def step(bs):
+            bs = pukf.predict_bank(bs, params, 0.01)
+            z = jnp.broadcast_to(jnp.array([0.3, 0.0, 0.0], f32), (2, 3))
+            return pukf.update_velocity_bank(bs, params, z, jnp.eye(3, dtype=f32) * 1e-3)[0]
+
+        out = jax.jit(step)(bankmod.replicate(state, 2))
         assert bool(jnp.isfinite(out.cov).all())
     finally:
         monkeypatch.undo()
         jax.clear_caches()
 
 
-def test_triton_kernel_lowers_for_cuda():
-    """The kernel lowers to XLA's Triton custom call for a CUDA target (the
-    Triton→PTX compile itself needs the card)."""
+def test_sigma_deltas_lower_for_cuda_to_xla_library_calls():
+    """For a CUDA target the deltas lower to XLA's own ops plus one batched
+    cuSOLVER ``potrf`` that declares its bank axis partitionable — so a
+    sharded bank splits across cards under plain ``jit`` — and to no
+    hand-written kernel."""
     x = jax.ShapeDtypeStruct((256, 53, 53), jnp.float32)
-    lowered = jax.jit(partial(kernels.sigma_deltas_triton)).trace(x).lower(
-        lowering_platforms=("cuda",)
-    )
-    assert "__gpu$xla.gpu.triton" in lowered.as_text()
+    text = jax.jit(kernels.sigma_deltas_banked).trace(x).lower(lowering_platforms=("cuda",)).as_text()
+    calls = [line for line in text.splitlines() if "stablehlo.custom_call" in line]
+    assert len(calls) == 1 and "@cusolver_potrf_ffi" in calls[0], calls
+    assert 'num_batch_dims = "1"' in calls[0]
+    assert "triton" not in text and "mosaic" not in text
