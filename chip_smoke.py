@@ -33,11 +33,13 @@ non-zero and prints no result):
    which a GPU host need not have; ``tests/test_aot.py`` covers the bytes).
 
 With ``--cards 4``: a 1-D ``bank`` mesh over the four cards, the flagship
-mission under ``jit`` with the bank placed by ``NamedSharding`` and the scan
-in ``shard_map``, so each card runs its own shard (the compiled program must
-move no bank data between cards: no all-gather, all-to-all or
-collective-permute; left to GSPMD, the H100 compile all-gathers),
-``ensemble_mean``, a mid-mission
+mission under ``jit`` with the bank and its inputs placed by
+``NamedSharding`` (``parallel/sharding.shard_bank`` / ``shard_time_bank``)
+and the scan in ``sharding.mission_shard_map``, so each card runs its own
+shard (the compiled program must move no bank data between cards: no
+all-gather, all-to-all or collective-permute, and its tick outputs stay
+sharded; a plain ``jit`` all-gathers on the H100), ``ensemble_mean``, a
+mid-mission
 ``save_sharded``/``restore_sharded`` round trip, all compared with the same
 bank on one card.
 
@@ -50,6 +52,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -59,7 +62,6 @@ import numpy as np
 
 BANK = 131072
 SMALL_BANK = 65536
-MISSION_TICKS = 300
 CHECK_INSTANCES = 8
 REF_TICKS = 200
 ATE_BOUND_M = 0.10
@@ -179,7 +181,7 @@ def phase_mission(log, dev):
     from slam_uwv_kalman_filters_tpu.parallel import bank as bankmod
 
     t0 = time.perf_counter()
-    rate, compile_s, run_s, bstate, outs = bench.bench_mission(BANK, MISSION_TICKS)
+    rate, compile_s, run_s, bstate, outs = bench.bench_mission(BANK, bench.MISSION_TICKS)
     finite = all(
         bool(jnp.isfinite(x).all()) for x in (bstate.cov, bstate.mu.position, outs.position)
     )
@@ -189,14 +191,14 @@ def phase_mission(log, dev):
     big_trace = np.asarray(jnp.trace(bstate.cov[:CHECK_INSTANCES], axis1=1, axis2=2))
     peak = _peak_gb(dev)
     log(
-        "mission", bank=BANK, ticks=MISSION_TICKS, mission_seconds=MISSION_TICKS / 100,
+        "mission", bank=BANK, ticks=bench.MISSION_TICKS, mission_seconds=bench.MISSION_TICKS / 100,
         compile_s=compile_s, run_s=run_s, ticks_per_s=rate, peak_gb=peak,
     )
     del bstate, outs
 
     # the same inputs for the first 8 instances, as a bank of 8
     state, params, meas = bench.pose_setup(jnp.float32)
-    inputs = bench.steady_state_inputs(meas, BANK, MISSION_TICKS, jnp.float32, jax.random.PRNGKey(0))
+    inputs = bench.steady_state_inputs(meas, BANK, bench.MISSION_TICKS, jnp.float32, jax.random.PRNGKey(0))
     inputs8 = jax.tree_util.tree_map(
         lambda x: x[:, :CHECK_INSTANCES] if _per_instance(x) else x, inputs
     )
@@ -305,14 +307,16 @@ def reference_mission(dtype):
 
 def compare_reference(f32, f64, label: str):
     """(position m, velocity m/s, relative covariance-trace) gaps between two
-    ``reference_mission`` results; raises beyond 2e-3 m, 1e-3 m/s, 1e-3 —
-    f32 roundoff amplified by 200 ticks of filter recursion (the same
-    comparison on a CPU gives 3.9e-4 m, 3e-5 m/s, 3e-5)."""
+    ``reference_mission`` results; raises beyond 1e-3 m, 1e-4 m/s, 1e-4, and
+    on any NaN. f32 roundoff amplified by 200 ticks of filter recursion gives
+    3.9e-4 m, 1.8e-5..3.0e-5 m/s and 2.8e-5..3.0e-5 on the H100 and on a CPU;
+    the same mission with the filter's matmuls at default precision (TF32 on
+    the H100) ends in NaN, so every bound fails it (PERF.md)."""
     (pos32, vel32, trace32), (pos64, vel64, trace64) = f32, f64
     pos_err = np.abs(pos32 - pos64).max()
     vel_err = np.abs(vel32 - vel64).max()
     trace_err = np.abs(trace32 / trace64 - 1.0).max()
-    if not (pos_err < 2e-3 and vel_err < 1e-3 and trace_err < 1e-3):
+    if not (pos_err < 1e-3 and vel_err < 1e-4 and trace_err < 1e-4):
         raise AssertionError(
             f"{label}: position {pos_err:.2e} m, velocity {vel_err:.2e} m/s, trace {trace_err:.2e}"
         )
@@ -349,7 +353,7 @@ def phase_f32_vs_f64(log):
     )
     log("f32_gpu_vs_f64_cpu", instances=CHECK_INSTANCES, ticks=REF_TICKS,
         position_err_m=float(pos_err), velocity_err_mps=float(vel_err),
-        cov_trace_rel_err=float(trace_err), bounds="2e-3 m, 1e-3 m/s, 1e-3",
+        cov_trace_rel_err=float(trace_err), bounds="1e-3 m, 1e-4 m/s, 1e-4",
         seconds=time.perf_counter() - t0)
 
 
@@ -420,49 +424,39 @@ def phase_four_cards(log):
     ticks = 100
     state, params, meas = bench.pose_setup(jnp.float32)
     mesh = sharding.make_mesh(jax.devices()[:4])
-    time_bank = NamedSharding(mesh, P(None, "bank"))
 
     def inputs_for(t0_tick, sharded):
         inp = bench.steady_state_inputs(
             meas, BANK, ticks, jnp.float32, jax.random.fold_in(jax.random.PRNGKey(4), t0_tick),
             t0=t0_tick,
         )
-        if not sharded:
-            return inp
-        return jax.tree_util.tree_map(
-            lambda x: jax.device_put(x, time_bank if _per_instance(x) else NamedSharding(mesh, P())),
-            inp,
-        )
+        return sharding.shard_time_bank(inp, mesh, BANK) if sharded else inp
 
     def mission(bs, inp):
         return drv.run_trajectory_bank(bs, params, inp)
 
-    def sharded_mission(bs, inp):
-        spec = lambda tree, s: jax.tree_util.tree_map(s, tree)
-        in_specs = (
-            spec(bs, lambda _: P("bank")),
-            spec(inp, lambda x: P(None, "bank") if _per_instance(x) else P()),
-        )
-        out = jax.eval_shape(mission, bs, inp)
-        out_specs = (spec(out[0], lambda _: P("bank")), spec(out[1], lambda _: P(None, "bank")))
-        return jax.shard_map(
-            mission, mesh=mesh, in_specs=in_specs, out_specs=out_specs, check_vma=False
-        )(bs, inp)
-
     bs4 = sharding.shard_bank(bench._fresh(bankmod.replicate(state, BANK)), mesh)
     inp0 = inputs_for(0, True)
     tc = time.perf_counter()
-    run4 = jax.jit(sharded_mission).lower(bs4, inp0).compile()
+    run4 = jax.jit(sharding.mission_shard_map(mission, mesh, BANK)).lower(bs4, inp0).compile()
     compile_s = time.perf_counter() - tc
     hlo = run4.as_text()
-    moves = {op: hlo.count(op) for op in ("all-gather", "all-to-all", "collective-permute")}
-    if any(moves.values()):
+    moves = [
+        line.split("=")[1].strip()[:60]
+        for line in hlo.splitlines()
+        if re.search(r"(all-gather|all-to-all|collective-permute)(-start)?\(", line)
+    ]
+    if moves:
         raise AssertionError(f"the sharded mission moves bank data between cards: {moves}")
     ens = jax.jit(sharding.ensemble_mean)
     tc = time.perf_counter()
-    half, _ = run4(bs4, inp0)
+    half, outs = run4(bs4, inp0)
     jax.block_until_ready(half.cov)
     first_s = time.perf_counter() - tc
+    time_bank = NamedSharding(mesh, P(None, "bank"))
+    if not all(x.sharding.is_equivalent_to(time_bank, x.ndim) for x in jax.tree_util.tree_leaves(outs)):
+        raise AssertionError("the tick outputs are not sharded over the bank")
+    del outs
     del inp0
     with tempfile.TemporaryDirectory() as td:
         checkpoint.save_sharded(os.path.join(td, "mid.npz"), half)
@@ -481,7 +475,8 @@ def phase_four_cards(log):
     del half, resumed, final4, bs4
     log("four_card_mission", bank=BANK, per_card=BANK // 4, ticks=2 * ticks,
         compile_s=compile_s, first_half_s=first_s, second_half_s=run_s,
-        ticks_per_s=BANK * ticks / run_s, all_reduces=hlo.count("all-reduce"))
+        ticks_per_s=BANK * ticks / run_s,
+        all_reduces=len(re.findall(r"all-reduce(-start)?\(", hlo)))
 
     one = jax.devices()[0]
     run1 = jax.jit(mission)

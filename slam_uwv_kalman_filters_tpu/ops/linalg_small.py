@@ -22,9 +22,12 @@ __all__ = ["cholesky_unrolled", "mm", "solve_spd", "UNROLL_LIMIT"]
 
 UNROLL_LIMIT = 8  # beyond this, fall back to library kernels
 
+# read at trace time by :func:`mm`
+PRECISION = jax.lax.Precision.HIGHEST
+
 
 def mm(*operands: jax.Array) -> jax.Array:
-    """Left-to-right product of ``operands`` at ``Precision.HIGHEST``.
+    """Left-to-right product of ``operands`` at :data:`PRECISION` (``HIGHEST``).
 
     An f32 matmul at default precision may run in bf16 or TF32 on an
     accelerator (a 10-bit mantissa, ~1e-3 relative). The covariance update
@@ -33,7 +36,7 @@ def mm(*operands: jax.Array) -> jax.Array:
     every matmul on the filter path goes through here."""
     out = operands[0]
     for x in operands[1:]:
-        out = jnp.matmul(out, x, precision=jax.lax.Precision.HIGHEST)
+        out = jnp.matmul(out, x, precision=PRECISION)
     return out
 
 

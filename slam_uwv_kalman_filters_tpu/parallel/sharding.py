@@ -30,12 +30,14 @@ __all__ = [
     "make_mesh",
     "bank_sharding",
     "shard_bank",
+    "shard_time_bank",
     "replicated",
     "ensemble_mean",
     "ensemble_moments",
     "acceptance_rate",
     "with_bank_constraint",
     "bank_shard_map",
+    "mission_shard_map",
 ]
 
 BANK_AXIS = "bank"
@@ -85,6 +87,25 @@ def shard_bank(tree: Any, mesh: Mesh, axis: str = BANK_AXIS) -> Any:
     return jax.tree_util.tree_map(lambda a: jax.device_put(a, sh), tree)
 
 
+def _time_bank_spec(x, bank_n: int, axis: str) -> P:
+    """Axis 1 of a time-major (T, bank, ...) leaf, or replicated for a
+    per-tick value the bank shares."""
+    return P(None, axis) if x.ndim >= 2 and x.shape[1] == bank_n else P()
+
+
+def shard_time_bank(inputs: Any, mesh: Mesh, bank_n: int, axis: str = BANK_AXIS) -> Any:
+    """Place time-major (T, bank, ...) mission inputs on the mesh: a leaf
+    whose axis 1 is the bank (``bank_n`` long) is sharded on that axis, and
+    a per-tick value shared by the bank (flags, covariances, the interval)
+    is replicated; a shared leaf that happens to be ``bank_n`` long on axis 1
+    is sharded too, which changes its layout, not its values. These are the
+    input specs of :func:`mission_shard_map`."""
+    return jax.tree_util.tree_map(
+        lambda x: jax.device_put(x, NamedSharding(mesh, _time_bank_spec(x, bank_n, axis))),
+        inputs,
+    )
+
+
 def with_bank_constraint(tree: Any, mesh: Mesh, axis: str = BANK_AXIS) -> Any:
     """In-jit sharding constraint pinning the bank layout (keeps XLA from
     resharding between predict/update phases)."""
@@ -97,18 +118,10 @@ def with_bank_constraint(tree: Any, mesh: Mesh, axis: str = BANK_AXIS) -> Any:
 # ---------------------------------------------------------------------------
 
 
-def bank_shard_map(fn, mesh: Mesh, axis: str = BANK_AXIS):
-    """Run a bank→bank step function per-device on its local bank shard.
-
-    Wrapping the step in ``shard_map`` pins every device to its local shard
-    with zero communication (the bank axis is embarrassingly parallel,
-    SURVEY.md §2.4), whatever the step holds. Under a plain ``jit`` GSPMD
-    picks the layouts itself: the H100 compile of the mission scan
-    replicates the per-instance ``info`` of the masked-update ``lax.cond``
-    branches and all-gathers it between devices on every fired update.
-
-    ``fn``'s inputs and outputs must all carry the bank as their leading
-    axis (ensemble reductions belong outside the wrapped step)."""
+def _shard_map():
+    """``shard_map`` and its keyword that turns replication checking off
+    (renamed check_rep → check_vma in jax 0.8); it must be off because steps
+    close over replicated parameter pytrees."""
     import inspect
 
     try:
@@ -116,13 +129,21 @@ def bank_shard_map(fn, mesh: Mesh, axis: str = BANK_AXIS):
     except ImportError:  # pragma: no cover — older jax
         from jax.experimental.shard_map import shard_map
 
-    # replication checking was renamed check_rep → check_vma in jax 0.8; it
-    # must be off because steps close over replicated parameter pytrees
-    check_kw = (
-        {"check_vma": False}
-        if "check_vma" in inspect.signature(shard_map).parameters
-        else {"check_rep": False}
-    )
+    if "check_vma" in inspect.signature(shard_map).parameters:
+        return shard_map, {"check_vma": False}
+    return shard_map, {"check_rep": False}
+
+
+def bank_shard_map(fn, mesh: Mesh, axis: str = BANK_AXIS):
+    """Run a bank→bank step function per-device on its local bank shard.
+
+    Wrapping the step in ``shard_map`` pins every device to its local shard
+    with zero communication (the bank axis is embarrassingly parallel,
+    SURVEY.md §2.4), whatever the step holds.
+
+    ``fn``'s inputs and outputs must all carry the bank as their leading
+    axis (ensemble reductions belong outside the wrapped step)."""
+    shard_map, check_kw = _shard_map()
 
     def wrapped(*bank_args):
         in_specs = jax.tree_util.tree_map(lambda _: P(axis), bank_args)
@@ -132,6 +153,41 @@ def bank_shard_map(fn, mesh: Mesh, axis: str = BANK_AXIS):
         return shard_map(
             fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs, **check_kw
         )(*bank_args)
+
+    return wrapped
+
+
+def mission_shard_map(fn, mesh: Mesh, bank_n: int, axis: str = BANK_AXIS):
+    """Run a bank mission ``fn(bstate, inputs) -> (bstate, tick_outputs)``
+    (``pose_driver.run_trajectory_bank`` with its parameters closed over)
+    per device on its local bank shard, inside ``shard_map``.
+
+    The state carries the bank on axis 0; the time-major inputs and tick
+    outputs carry it on axis 1, and per-tick values the bank shares are
+    replicated (the :func:`shard_time_bank` rule). Each device runs its
+    shard's scan with no communication. A plain ``jit`` of the mission over
+    a placed bank is not enough on the GPU: the H100 compile all-gathers
+    per-instance update values (f32 and bool rows of the masked-update
+    ``lax.cond``) between devices, though the same program partitions
+    without any on the CPU. Inside, the manifold mean's convergence test
+    and each ``lax.cond``'s skip test look at the local shard only, so a
+    sharded run can differ from one device at roundoff."""
+    shard_map, check_kw = _shard_map()
+
+    def wrapped(bstate, inputs):
+        spec = lambda x: _time_bank_spec(x, bank_n, axis)
+        out = jax.eval_shape(fn, bstate, inputs)
+        in_specs = (
+            jax.tree_util.tree_map(lambda _: P(axis), bstate),
+            jax.tree_util.tree_map(spec, inputs),
+        )
+        out_specs = (
+            jax.tree_util.tree_map(lambda _: P(axis), out[0]),
+            jax.tree_util.tree_map(spec, out[1]),
+        )
+        return shard_map(
+            fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs, **check_kw
+        )(bstate, inputs)
 
     return wrapped
 

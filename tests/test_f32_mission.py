@@ -19,6 +19,7 @@ from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "examples"))
 
@@ -39,7 +40,7 @@ def test_bank_mission_f32_matches_f64():
     (predict + IMU acceleration every tick, DVL, pressure, ADCP and body
     efforts on their ICRA'18 rates, per-instance sensor noise) at f32
     against f64 on the CPU, held to the bounds the card is held to
-    (``chip_smoke.compare_reference``: 2e-3 m, 1e-3 m/s, 1e-3 relative
+    (``chip_smoke.compare_reference``: 1e-3 m, 1e-4 m/s, 1e-4 relative
     covariance trace)."""
     import chip_smoke
 
@@ -49,3 +50,25 @@ def test_bank_mission_f32_matches_f64():
     pos_err, vel_err, trace_err = chip_smoke.compare_reference(f32, f64, "f32 vs f64")
     # the gap is f32 roundoff, not zero: the two runs really differ in dtype
     assert pos_err > 0.0
+
+
+@pytest.mark.parametrize("field", ["nan", "position", "velocity", "trace"])
+def test_compare_reference_rejects_divergence(field):
+    """``chip_smoke.compare_reference`` fails a mission that ended in NaN
+    (what the filter does with its matmuls in TF32) and one that drifted
+    past any of its three bounds."""
+    import chip_smoke
+
+    ref = (np.zeros((8, 3)), np.zeros((8, 3)), np.ones(8))
+    got = [a.copy() for a in ref]
+    if field == "nan":
+        got[0][3, 1] = np.nan
+    elif field == "position":
+        got[0][0, 0] = 1.5e-3
+    elif field == "velocity":
+        got[1][0, 0] = 1.5e-4
+    else:
+        got[2][0] = 1.0 + 1.5e-4
+    with pytest.raises(AssertionError):
+        chip_smoke.compare_reference(tuple(got), ref, field)
+    chip_smoke.compare_reference(ref, ref, "same")

@@ -193,6 +193,46 @@ def test_bank_shard_map_runs_step_per_device():
     assert len(out_sharded.cov.sharding.device_set) == len(jax.devices())
 
 
+@pytest.mark.parametrize("wrap", ["jit", "mission_shard_map"])
+def test_shard_time_bank_mission_runs_per_device(wrap):
+    """The mission over a bank placed by shard_bank and inputs placed by
+    shard_time_bank: per-instance streams are sharded on the bank axis and
+    shared ones replicated, the tick outputs stay sharded, and the result
+    equals the unsharded run, under a plain jit and in mission_shard_map
+    (whose compiled scan must gather nothing: a plain jit does on the GPU).
+    Ticks 80..99 fire every sensor once and skip most."""
+    import bench
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from slam_uwv_kalman_filters_tpu.models import pose_driver as drv
+
+    mesh = sharding.make_mesh()
+    n, t = 16, 20
+    state, params, meas = bench.pose_setup(jnp.float64)
+    inputs = bench.steady_state_inputs(meas, n, t, jnp.float64, jax.random.PRNGKey(3), t0=80)
+    placed = sharding.shard_time_bank(inputs, mesh, n)
+    time_bank = NamedSharding(mesh, P(None, "bank"))
+    assert placed.acc.sharding.is_equivalent_to(time_bank, 3)
+    assert placed.acc_cov.sharding.is_fully_replicated
+    assert placed.dvl_valid.sharding.is_fully_replicated
+
+    def mission(bs, inp):
+        return drv.run_trajectory_bank(bs, params, inp)
+
+    run = jax.jit(mission if wrap == "jit" else sharding.mission_shard_map(mission, mesh, n))
+    bs = sharding.shard_bank(bank.replicate(state, n), mesh)
+    if wrap == "mission_shard_map":
+        assert "all-gather" not in run.lower(bs, placed).compile().as_text()
+    final, outs = run(bs, placed)
+    for leaf in jax.tree_util.tree_leaves(outs):
+        assert leaf.sharding.is_equivalent_to(time_bank, leaf.ndim)
+    ref, ref_outs = jax.jit(mission)(bank.replicate(state, n), inputs)
+    np.testing.assert_allclose(np.asarray(final.cov), np.asarray(ref.cov), rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(np.asarray(outs.position), np.asarray(ref_outs.position), atol=1e-9)
+    np.testing.assert_allclose(np.asarray(outs.dvl_nis), np.asarray(ref_outs.dvl_nis), rtol=1e-6)
+    assert np.asarray(outs.dvl_nis)[-1].all() and not np.asarray(outs.dvl_nis)[:-1].any()
+
+
 def test_save_sharded_scalar_and_replicated_leaves(tmp_path):
     """save_sharded must handle rank-0 leaves (ring-buffer heads, counters)
     and keep replicated leaves single-copy (regression: 0-d leaves crashed
